@@ -1,0 +1,544 @@
+#!/usr/bin/env python3
+"""Smoke run of the fasim_tpu_torch main path on one CUDA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one line with its seconds:
+
+  1. device  — requires torch.cuda.is_available(); prints the card's name
+     and power limit (nvidia-smi), torch's and CUDA's versions;
+  2. build   — compiles fasim_tpu_torch/csrc/*.cu with nvcc;
+  3. kernels — every kernel against its plain PyTorch version on the card,
+     exact integer equality, on inputs made with numpy default_rng: K1
+     scan_colmax (main-path batch, ragged, byte-saturating, impure with
+     a U query, a NEAT1-length query, a 50 kb segment), the candidate
+     packing against its numpy mirror, K3 window_fwd on every width
+     class and K4 window_general on the specs of a real candidate stage;
+  4. e2e     — the port's CLI in this process on oracle/golden/h19_lg40
+     and oracle/golden/meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records),
+     every output file and stdout (except "Running time is") byte for
+     byte, with every kernel's launch count > 0;
+  5. times   — each kernel and its plain version at main-path shapes
+     (CUDA events around synchronized runs).
+
+Then one JSON line of per-kernel results and, last, the line
+{"ok": true, "device": {...}}.  Any failure exits non-zero without it;
+so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+ORACLE = os.path.join(REPO, "oracle")
+SEED = 20261016
+MEG3_M = 1582  # the MEG3 lncRNA of oracle/MEG3.fa
+NEAT1_M = 22767  # the NEAT1 lncRNA of oracle/NEAT1.fa
+
+
+class SmokeError(AssertionError):
+    """A phase's check failed."""
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeError(msg)
+
+
+class Smoke:
+    """State shared by the phases: inputs, diffs and times per kernel."""
+
+    KERNELS = {
+        "scan_colmax": ("fasim_tpu_torch/csrc/scan.cu",
+                        "fasim_tpu/kernels/tpu.py:974"),
+        "window_fwd": ("fasim_tpu_torch/csrc/window.cu",
+                       "fasim_tpu/kernels/tpu.py:1796"),
+        "window_general": ("fasim_tpu_torch/csrc/window.cu",
+                           "fasim_tpu/kernels/tpu.py:1529"),
+    }
+
+    def __init__(self):
+        import numpy as np
+        import torch
+
+        self.np = np
+        self.torch = torch
+        self.dev = torch.device("cuda:0")
+        self.rng = np.random.default_rng(SEED)
+        self.err = {k: None for k in self.KERNELS}
+        self.ms = {}
+        self.plain_ms = {}
+        self.launches = {}
+
+    # -- helpers ---------------------------------------------------------
+
+    def dna(self, n: int, alphabet: bytes = b"ACGT"):
+        np = self.np
+        return np.frombuffer(alphabet, np.uint8)[
+            self.rng.integers(0, len(alphabet), n)].copy()
+
+    def batch(self, seqs, n_pad: int):
+        np = self.np
+        segs = np.zeros((len(seqs), n_pad), np.uint8)
+        lens = np.zeros(len(seqs), np.int32)
+        for i, s in enumerate(seqs):
+            segs[i, :len(s)] = s
+            lens[i] = len(s)
+        return segs, lens
+
+    def engine(self, rna):
+        from fasim_tpu import rules
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+        eng = TorchScanEngine(rna, device=self.dev)
+        eng.setup_scans(rules.scan_list(0, 0))
+        eng.setup_windows(rna)
+        return eng
+
+    def compare(self, kernel: str, got, want, what: str) -> None:
+        """Exact equality of integer tensors; records the max |diff|."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        require(got.shape == want.shape,
+                f"{kernel} {what}: shape {tuple(got.shape)} vs "
+                f"{tuple(want.shape)}")
+        diff = int((got.long() - want.long()).abs().max()) \
+            if got.numel() else 0
+        prev = self.err[kernel]
+        self.err[kernel] = diff if prev is None else max(prev, diff)
+        require(diff == 0, f"{kernel} {what}: max |kernel - plain| = {diff}")
+
+    def cuda_ms(self, fn, reps: int, warm: bool = True) -> float:
+        """Mean milliseconds of fn() over reps runs (after one warm-up)."""
+        torch = self.torch
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    # -- phase 1 ---------------------------------------------------------
+
+    def phase_device(self) -> None:
+        torch = self.torch
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+        self.smi = smi.stdout.strip().splitlines()[0]
+        print(self.smi)
+        print(f"device: {torch.cuda.get_device_name(0)}, "
+              f"count {torch.cuda.device_count()}, torch {torch.__version__},"
+              f" CUDA {torch.version.cuda}")
+
+    # -- phase 2 ---------------------------------------------------------
+
+    def phase_build(self) -> None:
+        from fasim_tpu_torch.kernels import _build
+
+        t0 = time.perf_counter()
+        path = _build.build()
+        _build.lib()
+        print(f"built {os.path.relpath(path, REPO)} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        log = (_build.BUILD_DIR / "build.log").read_text()
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas:", line.strip())
+
+    # -- phase 3 ---------------------------------------------------------
+
+    def k1_case(self, name: str, rna, seqs, n_pad: int):
+        """K1 on both alphabets: kernel vs plain on the same device
+        inputs.  Returns the ssw pass (thresh, cm) and the batch."""
+        from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
+                                                  scan_colmax_ref)
+
+        torch = self.torch
+        eng = self.engine(rna)
+        segs, lens = self.batch(seqs, n_pad)
+        bases, bases_rev = decode_bases(
+            torch.from_numpy(segs).to(self.dev),
+            torch.from_numpy(lens).to(self.dev))
+        d = eng._dev
+        out = None
+        for alpha, thresh in (("ssw", False), ("thresh", True)):
+            args = (bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
+                    d[f"qp2_{alpha}"], eng.m16, thresh)
+            cm_k, gm_k = scan_colmax(*args)
+            cm_p, gm_p = scan_colmax_ref(*args)
+            self.compare("scan_colmax", cm_k, cm_p, f"{name}/{alpha} colmax")
+            self.compare("scan_colmax", gm_k, gm_p, f"{name}/{alpha} max")
+            if not thresh:
+                out = (gm_k, cm_k)
+        print(f"  K1 {name}: S={len(seqs)} N={segs.shape[1]} m={len(rna)} "
+              f"T=48 max={int(out[0].max())} equal")
+        return out, segs, lens, eng
+
+    def phase_kernels(self) -> None:
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.pack import (pack_candidates,
+                                                  pack_candidates_np)
+
+        # K1 -----------------------------------------------------------
+        rna = self.dna(MEG3_M)
+        main = [self.dna(5000) for _ in range(64)]
+        (gm, cm), segs, lens, eng = self.k1_case("main-path batch", rna,
+                                                 main, 5120)
+        self.main_k1 = (rna, segs, lens)
+        ragged = [self.dna(int(n)) for n in
+                  self.rng.integers(100, 5001, 12)]
+        self.k1_case("ragged", rna, ragged, 5120)
+        ga = np.frombuffer(b"GA" * (MEG3_M // 2), np.uint8).copy()
+        sat = [np.concatenate([self.dna(300), ga[:600], self.dna(400)])
+               for _ in range(4)]
+        (gm_s, _), *_ = self.k1_case("GA-rich saturating", ga, sat, 1408)
+        require(int(gm_s.max()) >= 251, "GA batch did not saturate")
+        rna_u = rna.copy()
+        rna_u[self.rng.integers(0, len(rna_u), 20)] = ord("U")
+        impure = [self.dna(1800, b"ACGTNacgt") for _ in range(4)]
+        _, _, _, eng_u = self.k1_case("impure + U query", rna_u, impure,
+                                      1920)
+        require(not eng_u.query_pure, "U query must disable fused mode")
+        self.k1_case("NEAT1-length query", self.dna(NEAT1_M),
+                     [self.dna(900) for _ in range(2)], 1024)
+        # -c 50000: the segment codes outgrow 48 KB of shared memory
+        self.k1_case("wide segment", self.dna(100), [self.dna(50000)],
+                     50048)
+
+        # pack ---------------------------------------------------------
+        lens_d = torch.from_numpy(lens).to(self.dev)
+        pk = pack_candidates(gm, cm, lens_d, eng.PACK_K)
+        want = pack_candidates_np(gm.cpu().numpy(), cm.cpu().numpy(), lens,
+                                  eng.PACK_K)
+        for got, ref, name in zip(pk, want, ("pos", "val", "cnt")):
+            require(np.array_equal(got.cpu().numpy(), ref),
+                    f"pack_candidates {name} differs from the numpy mirror")
+        print(f"  pack_candidates: equal to the numpy mirror "
+              f"(max cnt {int(want[2].max())})")
+
+        # K3 on every width class, incl. rlens in (196, 256] ---------------
+        from fasim_tpu_torch.kernels.window import (
+            both_strands, gather_window_codes, width_class, window_fwd,
+            window_general, window_pass_ref)
+
+        segs_d = torch.from_numpy(segs).to(self.dev)
+        both = both_strands(segs_d, lens_d)
+        S, N = segs.shape
+        d = eng._dev
+        rows = 512
+        for lo, hi in ((25, 48), (49, 64), (65, 96), (97, 128), (129, 196),
+                       (197, 256)):
+            rl = self.rng.integers(lo, hi + 1, rows).astype(np.int32)
+            seg_idx = self.rng.integers(0, S, rows).astype(np.int32)
+            base = np.array([self.rng.integers(0, max(1, lens[s] - r + 1))
+                             for s, r in zip(seg_idx, rl)], np.int32)
+            spec = [torch.from_numpy(a).to(self.dev) for a in (
+                seg_idx, self.rng.integers(0, 48, rows).astype(np.int32),
+                base, np.ones(rows, np.int32), rl)]
+            W = int(width_class(rl).max())
+            codes = gather_window_codes(both, S, N, d["lut_s"], d["is_tr"],
+                                        *spec, W)
+            qp = d["qwin_fwd"]
+            got = window_fwd(codes, qp, spec[4], eng.m, eng.m16)
+            full = lambda v: torch.full((rows,), v, dtype=torch.int32,
+                                        device=self.dev)
+            want = window_pass_ref(codes, qp, full(0), full(-1), spec[4],
+                                   full(eng.m16), eng.m)
+            self.compare("window_fwd", got, want, f"rlens {lo}..{hi}")
+            print(f"  K3 rlens {lo}..{hi} (W={W}): {rows} rows equal, "
+                  f"best max {int(want[:, 0].max())}")
+
+        # K4 (and K3) on the specs of a real candidate stage ----------------
+        self.capture = self.capture_specs()
+        for rev in (False, True):
+            calls = [c for c in self.capture if c[3] == rev]
+            n = 0
+            for segs_c, lens_c, spec, _ in calls:
+                for W, codes, part in self.spec_codes(segs_c, lens_c, spec,
+                                                      rev):
+                    qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
+                    args = (codes, qp, part["offs"], part["terms"],
+                            part["rlens"], part["mreals"], self.cap_eng.m)
+                    want = window_pass_ref(*args)
+                    self.compare("window_general", window_general(*args),
+                                 want, f"{'rev' if rev else 'fwd'} specs "
+                                 f"W={W}")
+                    if not rev:  # the production forward specs are K3's
+                        self.compare("window_fwd", window_fwd(
+                            codes, qp, part["rlens"], self.cap_eng.m,
+                            self.cap_eng.m16), want, f"fwd specs W={W}")
+                    n += codes.shape[0]
+            print(f"  K4 {'reverse' if rev else 'forward'} specs of a "
+                  f"real candidate stage: {n} rows equal")
+
+    def spec_codes(self, segs_c, lens_c, spec, rev):
+        """Per width class: (W, codes, spec columns) on the card."""
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.engine import SPEC_KEYS
+        from fasim_tpu_torch.kernels.window import (WIDTHS, both_strands,
+                                                    gather_window_codes,
+                                                    width_class)
+
+        eng = self.cap_eng
+        d = eng._dev
+        segs_d = torch.as_tensor(segs_c, device=self.dev)
+        S, N = segs_d.shape
+        both = both_strands(segs_d, torch.as_tensor(lens_c,
+                                                    device=self.dev))
+        klass = width_class(spec["rlens"])
+        out = []
+        for W in WIDTHS:
+            sel = np.flatnonzero(klass == W)
+            if not len(sel):
+                continue
+            part = {k: torch.from_numpy(np.ascontiguousarray(
+                spec[k][sel], np.int32)).to(self.dev) for k in SPEC_KEYS}
+            codes = gather_window_codes(
+                both, S, N, d["lut_s"], d["is_tr"], part["seg_idx"],
+                part["scan_idx"], part["base"], part["dirn"], part["rlens"],
+                W)
+            out.append((W, codes, part))
+        return out
+
+    def capture_specs(self):
+        """Run the port's batched scan on oracle/meg3sub64.fa (64 records, one
+        full 64-segment batch) x MEG3 and keep every window dispatch."""
+        from fasim_tpu.config import Params
+        from fasim_tpu.io import fasta
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.scan.batched import scan_records
+
+        calls = []
+        np_copy = self.np.array
+
+        class Recording(TorchScanEngine):
+            def window_pass_specs(self, segs, lengths, spec, rev):
+                calls.append((segs, np_copy(lengths),
+                              {k: np_copy(v) for k, v in spec.items()}, rev))
+                return super().window_pass_specs(segs, lengths, spec, rev)
+
+        p = Params(file1path=os.path.join(ORACLE, "meg3sub64.fa"),
+                   file2path=os.path.join(ORACLE, "MEG3.fa"))
+        _, rna = fasta.read_rna(p.file2path)
+        self.cap_eng = Recording(rna, device=self.dev)
+        records = fasta.read_dna(p.file1path)
+        t0 = time.perf_counter()
+        hits = sum(len(x) for x in scan_records(p, records, rna,
+                                                self.cap_eng))
+        print(f"  captured {len(calls)} window dispatches from meg3sub64 "
+              f"({hits} hits, {time.perf_counter() - t0:.1f} s)")
+        require(any(c[3] for c in calls) and any(not c[3] for c in calls),
+                "the candidate stage dispatched no forward or no reverse "
+                "windows")
+        return calls
+
+    # -- phase 4 ---------------------------------------------------------
+
+    def run_golden(self, case: str, f1: str, f2: str, extra: list) -> float:
+        import filecmp
+
+        from fasim_tpu_torch import cli
+
+        golden = os.path.join(ORACLE, "golden", case)
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(os.path.join(ORACLE, f1), tmp)
+            shutil.copy(os.path.join(ORACLE, f2), tmp)
+            os.mkdir(os.path.join(tmp, "out"))
+            buf = io.StringIO()
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["-f1", f1, "-f2", f2, "-O", "out/",
+                                   "--tpu-stdout-compat", "true", *extra])
+                self.torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            require(rc == 0, f"{case}: exit {rc}")
+            produced = sorted(os.listdir(os.path.join(tmp, "out")))
+            expected = sorted(f for f in os.listdir(golden)
+                              if not f.startswith("stdout"))
+            require(produced == expected,
+                    f"{case}: files {produced} vs {expected}")
+            for name in expected:
+                require(filecmp.cmp(os.path.join(tmp, "out", name),
+                                    os.path.join(golden, name),
+                                    shallow=False),
+                        f"{case}/{name} differs from the golden")
+
+        def strip(text):
+            return [ln for ln in text.splitlines()
+                    if not ln.startswith("Running time is")]
+
+        with open(os.path.join(golden, "stdout.txt")) as f:
+            require(strip(buf.getvalue()) == strip(f.read()),
+                    f"{case}: stdout differs from the golden")
+        return wall
+
+    def reset_counts(self) -> None:
+        from fasim_tpu_torch.kernels import scan, window
+
+        scan.scan_colmax.launches = 0
+        window.window_fwd.launches = 0
+        window.window_general.launches = 0
+
+    def read_counts(self) -> dict:
+        from fasim_tpu_torch.kernels import scan, window
+
+        return {"scan_colmax": scan.scan_colmax.launches,
+                "window_fwd": window.window_fwd.launches,
+                "window_general": window.window_general.launches}
+
+    # (golden case, DNA, RNA, extra flags); the last is the real-size run
+    GOLDENS = (("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"]),
+               ("meg3_full", "meg3dna.fa", "MEG3.fa", []))
+
+    def phase_e2e(self) -> None:
+        for case, f1, f2, extra in self.GOLDENS:
+            self.reset_counts()
+            wall = self.run_golden(case, f1, f2, extra)
+            counts = self.read_counts()
+            print(f"  {case}: byte-identical, wall {wall:.2f} s, "
+                  f"launches {counts}")
+            for k, n in counts.items():
+                require(n > 0, f"{case}: kernel {k} was never launched")
+            self.launches = counts  # the last run: MEG3-full
+            self.e2e_wall = wall
+
+    # -- phase 5 ---------------------------------------------------------
+
+    def phase_times(self) -> None:
+        torch = self.torch
+        from fasim_tpu_torch.kernels.pack import pack_candidates
+        from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
+                                                  scan_colmax_ref)
+        from fasim_tpu_torch.kernels.window import (window_fwd,
+                                                    window_general,
+                                                    window_pass_ref)
+
+        rna, segs, lens = self.main_k1
+        eng = self.engine(rna)
+        d = eng._dev
+        segs_d = torch.from_numpy(segs).to(self.dev)
+        lens_d = torch.from_numpy(lens).to(self.dev)
+        bases, bases_rev = decode_bases(segs_d, lens_d)
+        args = (bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"],
+                eng.m16, False)
+        self.ms["scan_colmax"] = self.cuda_ms(lambda: scan_colmax(*args), 3)
+        self.plain_ms["scan_colmax"] = self.cuda_ms(
+            lambda: scan_colmax_ref(*args), 1, warm=False)
+        S, N = segs.shape
+        print(f"  K1 scan_colmax, ssw pass, S={S} T=48 N={N} m={len(rna)}: "
+              f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
+              f"{self.plain_ms['scan_colmax']:.3f} ms")
+        cm, gm = scan_colmax(*args)
+        pack_ms = self.cuda_ms(
+            lambda: pack_candidates(gm, cm, lens_d, eng.PACK_K), 5)
+        print(f"  pack_candidates (torch ops) on that batch: {pack_ms:.3f} ms")
+
+        # the largest forward and reverse dispatch of the meg3sub64 batch
+        for kernel, rev in (("window_fwd", False), ("window_general", True)):
+            calls = [c for c in self.capture if c[3] == rev]
+            segs_c, lens_c, spec, _ = max(calls,
+                                          key=lambda c: len(c[2]["rlens"]))
+            parts = self.spec_codes(segs_c, lens_c, spec, rev)
+            qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
+            m, m16 = self.cap_eng.m, self.cap_eng.m16
+
+            def run(plain, parts=parts, qp=qp, rev=rev):
+                for _, codes, part in parts:
+                    if plain:
+                        window_pass_ref(codes, qp, part["offs"],
+                                        part["terms"], part["rlens"],
+                                        part["mreals"], m)
+                    elif rev:
+                        window_general(codes, qp, part["offs"],
+                                       part["terms"], part["rlens"],
+                                       part["mreals"], m)
+                    else:
+                        window_fwd(codes, qp, part["rlens"], m, m16)
+
+            self.ms[kernel] = self.cuda_ms(lambda: run(False), 5)
+            self.plain_ms[kernel] = self.cuda_ms(lambda: run(True), 1,
+                                                 warm=False)
+            widths = {W: int(c.shape[0]) for W, c, _ in parts}
+            print(f"  {kernel}, {'reverse' if rev else 'forward'} dispatch "
+                  f"of {len(spec['rlens'])} rows (rows per width {widths}), "
+                  f"m={m}: kernel {self.ms[kernel]:.3f} ms, plain "
+                  f"{self.plain_ms[kernel]:.3f} ms")
+
+    def report(self) -> dict:
+        out = []
+        for name, (src, replaces) in self.KERNELS.items():
+            out.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": self.launches.get(name, 0),
+                        "max_abs_err": self.err[name],
+                        "ms": self.ms.get(name),
+                        "plain_ms": self.plain_ms.get(name)})
+        return {"kernels": out}
+
+
+PHASES = ("device", "build", "kernels", "e2e", "times")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "fasim_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        smoke = Smoke()
+        for name in PHASES:
+            t0 = time.perf_counter()
+            getattr(smoke, f"phase_{name}")()
+            print(f"phase {name}: ok, {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    except Exception:  # noqa: BLE001 — any failure fails the smoke run
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(f"MEG3-full wall {smoke.e2e_wall:.3f} s on {smoke.smi}")
+    print(json.dumps(smoke.report()))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels of `csrc/`.
+
+`nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a) into one shared
+library with a plain C interface, `build/kernels/libfasim_cuda.so` beside
+the package, at first use; the library is loaded with ctypes.  A rebuild
+happens when the sources' hash changes.  Nothing here runs at import, so
+the CPU tests (no nvcc, no card) import the kernel modules freely.
+
+Calling convention (every entry point): tensor pointers as `c_void_p`
+from `data_ptr()`, the launch stream as `c_void_p` from
+`torch.cuda.current_stream().cuda_stream`, ints as `c_int`; the entry
+returns `cudaGetLastError()` after its launch and `check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
+LIB_NAME = "libfasim_cuda.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argtypes (restype is c_int for all but the error string)
+SIGNATURES = {
+    "fasim_scan_colmax": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _P, _P, _P],
+    "fasim_scan_strip_rows": [],
+    "fasim_window_fwd": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+    "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+                             _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME or CUDA's default prefix."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return path
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for their hash exists; returns
+    the library path.  The compiler's output (ptxas register and spill
+    report) is kept in build/kernels/build.log."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    digest = _digest(sources)
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sources if s.suffix == ".cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                           + res.stderr[-4000:])
+    os.replace(tmp, lib)  # atomic against a concurrent build
+    stamp.write_text(digest)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.fasim_cuda_error_string.argtypes = [ctypes.c_int]
+            handle.fasim_cuda_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def check(err: int, entry: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib().fasim_cuda_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches` count (scan/batched.py launches
+    window passes from several stage threads)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def stream_of(t) -> int:
+    """Handle of PyTorch's current stream on the tensor's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

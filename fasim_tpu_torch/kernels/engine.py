@@ -1,0 +1,262 @@
+"""TorchScanEngine: the port's scan engine.
+
+Counterpart of fasim_tpu/kernels/tpu.py:TpuScanEngine and
+kernels/xla.py:XlaScanEngine, with the same methods, so the reused host
+candidate stage (fasim_tpu/scan/candidates.py) drives it unchanged.  The
+engine owns its tables (the state `state()` / `load_state()` carry):
+
+  * lut_s / lut_t uint8[T, 256], is_tr bool[T]: composed rule-transform
+    o encoder LUTs (window gather);
+  * lut6_s / lut6_t / istr int32[T, 128]: the same per base class (K1);
+  * qp2_ssw / qp2_thresh int32[5, mp2]: the scan query rows (K1);
+  * qwin_fwd / qwin_rev int32[3, mp]: the window query rows (K3, K4).
+
+On a CUDA device every device pass is a hand-written kernel; on the CPU
+the wrappers take the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fasim_tpu import rules
+from fasim_tpu.rules import SSW_ENC, THRESH_ENC
+
+from .pack import pack_candidates
+from .scan import (N_BASE, PURE, PURE_OR_PAD, decode_bases, make_lut6,
+                   make_qp2, scan_colmax)
+from .window import (WIDTHS, both_strands, gather_window_codes,
+                     width_class, window_fwd, window_general, window_qp)
+
+SPEC_KEYS = ("seg_idx", "scan_idx", "base", "dirn", "rlens", "offs",
+             "terms", "mreals")
+
+# table -> dtype; shapes are checked against the query and scan count
+STATE_DTYPES = {
+    "lut_s": np.uint8, "lut_t": np.uint8, "is_tr": np.bool_,
+    "lut6_s": np.int32, "lut6_t": np.int32, "istr": np.int32,
+    "qp2_ssw": np.int32, "qp2_thresh": np.int32,
+    "qwin_fwd": np.int32, "qwin_rev": np.int32,
+}
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class TorchScanEngine:
+    """Scan engine on one torch device ("cuda:0", or "cpu" for the
+    plain versions)."""
+
+    PACK_K = 384  # > p99 of measured candidate-column counts (270)
+    # no per-shape compiles: partial batches are trimmed, not padded
+    dynamic_batch = True
+
+    def __init__(self, rna: np.ndarray, device: str | torch.device = "cpu"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"TorchScanEngine: {self.device} requested "
+                               "but torch.cuda.is_available() is false")
+        self.m = len(rna)
+        self.m16 = _round_up(self.m, 16)
+        self.query_pure = bool(PURE[rna].all())
+        self._host: dict[str, np.ndarray] = {}
+        self._dev: dict[str, torch.Tensor] = {}
+        self._set({"qp2_ssw": make_qp2(rna, SSW_ENC, "ssw"),
+                   "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh")})
+
+    # -- state ---------------------------------------------------------------
+
+    def _set(self, tables: dict[str, np.ndarray]) -> None:
+        for key, arr in tables.items():
+            arr = np.ascontiguousarray(arr, STATE_DTYPES[key])
+            self._host[key] = arr
+            self._dev[key] = torch.from_numpy(arr.copy()).to(self.device)
+
+    def state(self) -> dict[str, np.ndarray]:
+        """Copies of the engine's tables (numpy)."""
+        return {k: v.copy() for k, v in self._host.items()}
+
+    def load_state(self, tables: dict[str, np.ndarray]) -> None:
+        """Replace tables with ones built elsewhere, e.g. a JAX engine's
+        (`XlaScanEngine._scan_luts`, `np.asarray` of a `TpuScanEngine`'s
+        `_scan_luts6`, `qp2_*`, or `_window_qp` rows)."""
+        mp2 = _round_up(self.m16 + 64, 128)
+        mp = _round_up(self.m + 63, 128)
+        want = {"qp2_ssw": (5, mp2), "qp2_thresh": (5, mp2),
+                "qwin_fwd": (3, mp), "qwin_rev": (3, mp)}
+        T = None
+        for key, arr in tables.items():
+            if key not in STATE_DTYPES:
+                raise KeyError(f"load_state: unknown table {key!r}")
+            arr = np.asarray(arr)
+            if key in want:
+                shape = want[key]
+            else:
+                T = arr.shape[0] if T is None else T
+                shape = {"lut_s": (T, 256), "lut_t": (T, 256),
+                         "is_tr": (T,)}.get(key, (T, 128))
+            if arr.shape != shape:
+                raise ValueError(f"load_state: {key} has shape {arr.shape},"
+                                 f" expected {shape}")
+        self._set(tables)
+
+    def setup_scans(self, scans: list[dict]) -> None:
+        """Composed (rule transform o encoder) tables for the scans."""
+        t = len(scans)
+        lut_s = np.empty((t, 256), np.uint8)
+        lut_t = np.empty((t, 256), np.uint8)
+        is_tr = np.zeros(t, np.bool_)
+        lut6_s = np.zeros((t, 128), np.int32)
+        lut6_t = np.zeros((t, 128), np.int32)
+        istr = np.zeros((t, 128), np.int32)
+        for k, sc in enumerate(scans):
+            rl = rules.transfer_lut(sc["strand"], sc["para"], sc["rule"])
+            lut_s[k] = SSW_ENC[rl].astype(np.uint8)
+            lut_t[k] = THRESH_ENC[rl].astype(np.uint8)
+            is_tr[k] = sc["xform"] == "tr"
+            lut6_s[k, :N_BASE] = make_lut6(rl, SSW_ENC)
+            lut6_t[k, :N_BASE] = make_lut6(rl, THRESH_ENC)
+            istr[k, :] = int(is_tr[k])
+        self._set({"lut_s": lut_s, "lut_t": lut_t, "is_tr": is_tr,
+                   "lut6_s": lut6_s, "lut6_t": lut6_t, "istr": istr})
+
+    def setup_windows(self, rna: np.ndarray) -> None:
+        """Window query rows: forward uses the query as is, reverse the
+        reversed query (a reverse pass on the query prefix [0..e] is the
+        same DP on the reversed query with the leading m-1-e rows' profile
+        zeroed — the `offs` of a reverse spec)."""
+        self._set({"qwin_fwd": window_qp(rna),
+                   "qwin_rev": window_qp(rna[::-1])})
+
+    # -- scan pass -----------------------------------------------------------
+
+    def _to_dev(self, a, dtype: torch.dtype) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype)
+        np_dt = {torch.uint8: np.uint8, torch.int32: np.int32}[dtype]
+        return torch.from_numpy(np.ascontiguousarray(a, np_dt)).to(
+            self.device)
+
+    def _segs_pure(self, segs) -> bool:
+        if isinstance(segs, torch.Tensor):
+            lut = torch.as_tensor(PURE_OR_PAD, device=segs.device)
+            return bool(lut[segs.long()].all())
+        return bool(PURE_OR_PAD[np.asarray(segs)].all())
+
+    def scan_segments(self, segs, lengths, full_prefix: bool = False,
+                      host_segs=None):
+        """Scan a batch of raw segments uint8[S, N] (pad byte 0; numpy or
+        a tensor — pass the host bytes as host_segs then, for the purity
+        test).  Returns tensors on the engine's device: (thresh int32[S, T],
+        colmax uint8[S, T, N] clamped at 255).  The kernel's gap is exact
+        at any length, so `full_prefix` (fasim_tpu's escalation rerun)
+        gives the same thresholds; it is accepted for that control flow."""
+        del full_prefix
+        fused = self.query_pure and self._segs_pure(
+            host_segs if host_segs is not None else segs)
+        bases, bases_rev = decode_bases(self._to_dev(segs, torch.uint8),
+                                        self._to_dev(lengths, torch.int32))
+        d = self._dev
+        cm, gm = scan_colmax(bases, bases_rev, d["lut6_s"], d["istr"],
+                             d["qp2_ssw"], self.m16, thresh_alphabet=False)
+        if not fused:
+            # query U/N or segment bytes outside ACGT: the threshold
+            # alphabet scores them differently, so it needs its own pass
+            _, gm = scan_colmax(bases, bases_rev, d["lut6_t"], d["istr"],
+                                d["qp2_thresh"], self.m16,
+                                thresh_alphabet=True, want_cm=False)
+        return gm, cm
+
+    def scan_segments_packed(self, segs: np.ndarray, lengths: np.ndarray):
+        """scan_segments + device-side candidate packing: (thresh, cm, pos,
+        val, cnt, segs_dev), all tensors on the engine's device; segs_dev
+        is the uploaded batch, which the window passes reuse.  Only
+        (thresh, cm) when N > 32767 (positions are int16)."""
+        segs_d = self._to_dev(segs, torch.uint8)
+        thresh, cm = self.scan_segments(segs_d, lengths, host_segs=segs)
+        if segs.shape[1] > 32767:
+            return thresh, cm
+        pos, val, cnt = pack_candidates(
+            thresh, cm, self._to_dev(lengths, torch.int32), self.PACK_K)
+        return thresh, cm, pos, val, cnt, segs_d
+
+    # -- candidate-window passes --------------------------------------------
+
+    def _check_rows(self, mreals: np.ndarray) -> None:
+        rows = self._host["qwin_fwd"].shape[1]
+        if len(mreals) and int(np.max(mreals)) > rows:
+            raise ValueError(f"mreals up to {int(np.max(mreals))} exceed the "
+                             f"{rows} window query rows")
+
+    def window_pass_specs(self, segs, lengths, spec: dict,
+                          rev: bool) -> np.ndarray:
+        """spec columns (int[rows]) seg_idx, scan_idx, base, dirn (+1 / -1
+        window read direction), rlens, offs, terms, mreals -> host int32
+        [rows, 3] (best, end_col, end_row).  Windows are gathered on the
+        device from the batch's segments and the scan LUTs.  Uniform
+        forward specs go to K3, everything else to K4."""
+        rows = len(spec["seg_idx"])
+        if rows == 0:
+            return np.zeros((0, 3), np.int32)
+        cols = {k: np.asarray(spec[k]) for k in SPEC_KEYS}
+        uniform = (not rev and (cols["offs"] == 0).all()
+                   and (cols["terms"] == -1).all()
+                   and (cols["mreals"] == self.m16).all()
+                   and (cols["dirn"] == 1).all())
+        self._check_rows(cols["mreals"])
+        segs_t = self._to_dev(segs, torch.uint8)
+        S, N = segs_t.shape
+        both = both_strands(segs_t, self._to_dev(lengths, torch.int32))
+        table = np.stack([cols[k] for k in SPEC_KEYS]).astype(np.int32)
+        klass = width_class(cols["rlens"])
+        d = self._dev
+        qp = d["qwin_rev" if rev else "qwin_fwd"]
+        out = torch.empty(rows, 3, dtype=torch.int32, device=self.device)
+        for width in WIDTHS:
+            sel = np.flatnonzero(klass == width)
+            if not len(sel):
+                continue
+            part = dict(zip(SPEC_KEYS, self._to_dev(table[:, sel],
+                                                    torch.int32)))
+            codes = gather_window_codes(
+                both, S, N, d["lut_s"], d["is_tr"], part["seg_idx"],
+                part["scan_idx"], part["base"], part["dirn"],
+                part["rlens"], width)
+            if uniform:
+                ends = window_fwd(codes, qp, part["rlens"], self.m,
+                                  self.m16)
+            else:
+                ends = window_general(codes, qp, part["offs"],
+                                      part["terms"], part["rlens"],
+                                      part["mreals"], self.m)
+            out[torch.from_numpy(sel).to(self.device)] = ends
+        return out.cpu().numpy()
+
+    def window_pass(self, codes: np.ndarray, offs: np.ndarray,
+                    terms: np.ndarray, rlens: np.ndarray,
+                    mreals: np.ndarray, rev: bool) -> np.ndarray:
+        """Window pass over prebuilt codes uint8[rows, W] (SSW alphabet;
+        columns >= rlen are never read) with per-row offs / terms / rlens
+        / mreals -> host int32[rows, 3] (contract of
+        XlaScanEngine.window_pass), through K4."""
+        rows, W = codes.shape
+        if rows == 0:
+            return np.zeros((0, 3), np.int32)
+        self._check_rows(np.asarray(mreals))
+        meta = np.stack([offs, terms, rlens, mreals]).astype(np.int32)
+        klass = width_class(rlens)
+        qp = self._dev["qwin_rev" if rev else "qwin_fwd"]
+        out = np.zeros((rows, 3), np.int32)
+        for width in WIDTHS:
+            sel = np.flatnonzero(klass == width)
+            if not len(sel):
+                continue
+            cp = np.full((len(sel), width), 4, np.uint8)
+            take = min(W, width)
+            cp[:, :take] = codes[sel, :take]
+            o, t, r, mr = self._to_dev(meta[:, sel], torch.int32)
+            out[sel] = window_general(self._to_dev(cp, torch.uint8), qp, o,
+                                      t, r, mr, self.m).cpu().numpy()
+        return out

@@ -1,0 +1,191 @@
+"""K1 scan_colmax: the scan pass's per-column maxima and thresholds.
+
+Replaces fasim_tpu/kernels/tpu.py:_scan2_kernel and the set-up around it
+in _device_scan2 / TpuScanEngine.  The kernel is csrc/scan.cu (its header
+says what bounds it on the card and how the design meets that);
+`scan_colmax_ref` is its plain PyTorch version, ported from
+kernels/xla.py:colmax_xla.  `scan_colmax` takes the plain version for CPU
+tensors and launches the kernel for CUDA tensors.
+
+Tables kept in the JAX package's shapes, so an engine's state compares
+literally with a `TpuScanEngine`'s:
+
+  * lut6 int32[T, 128]: per transform, the engine code of each base class
+    (A C G T U N) in lanes 0..5 (`make_lut6`);
+  * istr int32[T, 128]: 1 where the transform reads the reversed segment;
+  * qp2 int32[5, mp2]: query rows q, hi, lo, nval (+ the TPU kernel's
+    fbias row, unused here) per query position (`make_qp2`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fasim_tpu.config import GAP_EXTEND, GAP_OPEN
+
+from . import _build
+
+_NEG = -(2 ** 30)
+
+# base classes of the raw segment bytes: A0 C1 G2 T3 U4, anything else N5
+# (tpu.py _BASE6) — transferString translates only uppercase ACGTN, so the
+# composition rule LUT o encoder factors through these six classes
+BASE6 = np.full(256, 5, np.uint8)
+for _i, _c in enumerate(b"ACGTU"):
+    BASE6[_c] = _i
+N_BASE = 6
+
+# bytes for which the threshold and scan alphabets score identically, so
+# one ssw pass also yields the exact threshold ("fused" mode, tpu.py
+# _PURE / _PURE_OR_PAD): query ACGT in either case; segment uppercase ACGT
+# or the batch pad byte 0
+PURE = np.zeros(256, np.bool_)
+PURE[list(b"ACGTacgt")] = True
+PURE_OR_PAD = np.zeros(256, np.bool_)
+PURE_OR_PAD[list(b"ACGT")] = True
+PURE_OR_PAD[0] = True
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def make_lut6(rule_lut: np.ndarray, enc: np.ndarray) -> np.ndarray:
+    """(6,) engine codes of one transform: base class -> transferString
+    target -> engine code (tpu.py:_make_lut6)."""
+    chars = np.frombuffer(b"ACGTUN", np.uint8)
+    return enc[rule_lut[chars]].astype(np.int32)
+
+
+def make_qp2(rna: np.ndarray, enc: np.ndarray, alphabet: str) -> np.ndarray:
+    """Query rows int32[5, round_up(m16 + 64, 128)] (tpu.py make_qp2):
+    q (-1 past the query), hi / lo (the score where the reference code
+    equals / differs from q), nval (threshold alphabet: the score of a
+    reference N) and the TPU kernel's sentinel fbias row."""
+    m = len(rna)
+    m16 = _round_up(m, 16)
+    mp2 = _round_up(m16 + 64, 128)
+    q = enc[rna].astype(np.int32)
+    if alphabet == "thresh":
+        q = np.where(q == 4, 3, q)  # U scores exactly like T
+    qp = np.zeros((5, mp2), np.int32)
+    qp[0, :m] = q
+    qp[0, m:] = -1
+    if alphabet == "ssw":
+        qp[1, :m] = np.where(q < 4, 5, -4)
+        qp[2, :m] = -4
+    else:
+        qn = q == 5
+        qp[1, :m] = np.where(qn, -1, 5)
+        qp[2, :m] = np.where(qn, -1, -4)
+        qp[3, :m] = -1
+    idx = np.arange(mp2)
+    qp[4] = np.where(idx < m16, idx * GAP_EXTEND, _NEG)
+    return qp
+
+
+def decode_bases(segs: torch.Tensor, lengths: torch.Tensor):
+    """Raw segment bytes uint8[S, N] -> base classes (bases, bases_rev),
+    both uint8[S, N]; bases_rev reverses each segment's first lengths[s]
+    bytes and keeps the pad in place (tpu.py _device_scan2)."""
+    lut = torch.as_tensor(BASE6, device=segs.device)
+    bases = lut[segs.long()]
+    N = segs.shape[1]
+    pos = torch.arange(N, device=segs.device)
+    lens = lengths.long()[:, None]
+    ridx = torch.where(pos[None, :] < lens, lens - 1 - pos[None, :],
+                       pos[None, :])
+    return bases, torch.gather(bases, 1, ridx)
+
+
+def scan_colmax_ref(bases: torch.Tensor, bases_rev: torch.Tensor,
+                    lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
+                    m16: int, thresh_alphabet: bool):
+    """Plain version of the kernel: one exact DP column step at a time
+    over every (segment, transform) row, the vertical gap resolved with
+    a cumulative max (kernels/xla.py:colmax_xla).  Returns (colmax uint8
+    [S, T, N] clamped at 255, per-pair maximum int32[S, T])."""
+    S, N = bases.shape
+    T = lut6.shape[0]
+    dev = bases.device
+    rev = istr[:, 0].ne(0)[None, :, None]
+    sel = torch.where(rev, bases_rev[:, None, :], bases[:, None, :])
+    codes = torch.gather(lut6[:, :N_BASE].unsqueeze(0).expand(S, T, N_BASE),
+                         2, sel.long()).reshape(S * T, N)
+    q, hi, lo, nval = (qp[r, :m16] for r in range(4))
+    idx = torch.arange(m16, dtype=torch.int32, device=dev)
+    fbias = idx * GAP_EXTEND
+    foff = GAP_OPEN + (idx - 1) * GAP_EXTEND
+    rows = S * T
+    h = torch.zeros(rows, m16, dtype=torch.int32, device=dev)
+    e = torch.zeros_like(h)
+    zero = torch.zeros(rows, 1, dtype=torch.int32, device=dev)
+    neg = torch.full((rows, 1), _NEG, dtype=torch.int32, device=dev)
+    cm = torch.empty(rows, N, dtype=torch.int32, device=dev)
+    for j in range(N):
+        c = codes[:, j:j + 1]
+        s = torch.where(c == q, hi, lo)
+        if thresh_alphabet:
+            s = torch.where(c == 5, nval, s)
+        e = torch.maximum(e - GAP_EXTEND, h - GAP_OPEN)
+        diag = torch.cat([zero, h[:, :-1]], 1)
+        tmp = torch.maximum(diag + s, e).clamp_min_(0)
+        run = torch.cummax(tmp + fbias, dim=1).values
+        f = torch.cat([neg, run[:, :-1]], 1) - foff
+        h = torch.maximum(tmp, f)
+        cm[:, j] = h.amax(1)
+    cm = cm.view(S, T, N)
+    return cm.clamp(max=255).to(torch.uint8), cm.amax(2)
+
+
+def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
+                lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
+                m16: int, thresh_alphabet: bool, want_cm: bool = True):
+    """(colmax uint8[S, T, N] or None, per-pair max int32[S, T]).
+
+    CPU tensors take `scan_colmax_ref`; CUDA tensors launch the kernel
+    (and count the launch in `scan_colmax.launches`); anything else
+    raises."""
+    if bases.device.type == "cpu":
+        cm, gm = scan_colmax_ref(bases, bases_rev, lut6, istr, qp, m16,
+                                 thresh_alphabet)
+        return (cm if want_cm else None), gm
+    if bases.device.type != "cuda":
+        raise ValueError(f"scan_colmax: unsupported device {bases.device}")
+    S, N = bases.shape
+    T = lut6.shape[0]
+    for name, t, dt in (("bases", bases, torch.uint8),
+                        ("bases_rev", bases_rev, torch.uint8),
+                        ("lut6", lut6, torch.int32),
+                        ("istr", istr, torch.int32),
+                        ("qp", qp, torch.int32)):
+        if t.device != bases.device or t.dtype != dt \
+                or not t.is_contiguous():
+            raise ValueError(f"scan_colmax: {name} must be a contiguous "
+                             f"{dt} tensor on {bases.device}")
+    if (bases_rev.shape != bases.shape or lut6.shape[1] < N_BASE
+            or istr.shape[0] != T or qp.shape[0] < 4 or qp.shape[1] < m16):
+        raise ValueError("scan_colmax: inconsistent shapes")
+    lib = _build.lib()
+    dev = bases.device
+    gm = torch.empty(S, T, dtype=torch.int32, device=dev)
+    cm = (torch.empty(S, T, N, dtype=torch.uint8, device=dev) if want_cm
+          else None)
+    strip_rows = lib.fasim_scan_strip_rows()
+    bnd = (torch.empty(S * T * 3 * N, dtype=torch.int32, device=dev)
+           if m16 > strip_rows else None)
+    with torch.cuda.device(dev):
+        err = lib.fasim_scan_colmax(
+            bases.data_ptr(), bases_rev.data_ptr(), lut6.data_ptr(),
+            lut6.stride(0), istr.data_ptr(), istr.stride(0), qp.data_ptr(),
+            qp.stride(0), S, T, N, m16, int(thresh_alphabet),
+            None if bnd is None else bnd.data_ptr(),
+            None if cm is None else cm.data_ptr(), gm.data_ptr(),
+            _build.stream_of(bases))
+    _build.check(err, "fasim_scan_colmax")
+    _build.count_launch(scan_colmax)
+    return cm, gm
+
+
+scan_colmax.launches = 0

@@ -1,0 +1,214 @@
+"""K3 window_fwd and K4 window_general: the candidate-window passes.
+
+Replace fasim_tpu/kernels/tpu.py:_wfwd_kernel (K3: the uniform forward
+specs — off 0, mreal m16, no terms, dirn +1) and _wscan_kernel (K4:
+per-row offs, mreals, terms, dirn +-1) together with their ends
+reductions (_ends_from_lane_keys, _ends_from_stats).  Both kernels are
+instantiations of csrc/window.cu (its header says what bounds them on the
+card and how the design meets that) and return the ends int32[rows, 3]
+= (best, end_col, end_row) directly.  `window_pass_ref` is their plain
+PyTorch version, ported from kernels/xla.py:window_pass_xla.
+
+Also here: the window query rows (`window_qp`, xla.py:_window_qp) and the
+device-side window gather (`gather_window_codes`, the gather of
+tpu.py:_wspecs_call / _wspecs_fwd_call and xla.py:build_window_codes).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fasim_tpu.config import GAP_EXTEND, GAP_OPEN
+from fasim_tpu.rules import SSW_ENC
+
+from . import _build
+
+_NEG = -(2 ** 30)
+_BIG = 1 << 30
+
+# kernel widths: a warp's 32 lanes own 2, 4 or 8 window columns each
+WIDTHS = (64, 128, 256)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def width_class(rlens: np.ndarray) -> np.ndarray:
+    """Kernel width for each row: the narrowest of WIDTHS >= rlen."""
+    rl = np.asarray(rlens)
+    if len(rl) and int(rl.max()) > WIDTHS[-1]:
+        raise ValueError(f"window length {int(rl.max())} > {WIDTHS[-1]}")
+    return np.select([rl <= w for w in WIDTHS[:-1]], WIDTHS[:-1],
+                     WIDTHS[-1])
+
+
+def window_qp(rna: np.ndarray) -> np.ndarray:
+    """(q, hi, lo) int32[3, round_up(m + 63, 128)] rows of the window
+    pass in the SSW alphabet: s(code, row) = hi if code == q else lo;
+    rows >= len(rna) are zero-profile (the striped kernels' phantom
+    rows)."""
+    m = len(rna)
+    mp = _round_up(m + 63, 128)
+    q = SSW_ENC[rna].astype(np.int32)
+    qp = np.zeros((3, mp), np.int32)
+    qp[0, :m] = q
+    qp[0, m:] = -1
+    qp[1, :m] = np.where(q < 4, 5, -4)
+    qp[2, :m] = -4
+    return qp
+
+
+def both_strands(segs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Flat uint8[2 * S * N]: the segments, then each segment with its
+    first lengths[s] bytes reversed (the reversed-transform source)."""
+    N = segs.shape[1]
+    pos = torch.arange(N, device=segs.device)
+    lens = lengths.long()[:, None]
+    ridx = torch.where(pos[None, :] < lens, lens - 1 - pos[None, :],
+                       pos[None, :])
+    return torch.cat([segs, torch.gather(segs, 1, ridx)]).reshape(-1)
+
+
+def gather_window_codes(both: torch.Tensor, S: int, N: int,
+                        lut_s: torch.Tensor, is_tr: torch.Tensor,
+                        seg_idx: torch.Tensor, scan_idx: torch.Tensor,
+                        base: torch.Tensor, dirn: torch.Tensor,
+                        rlens: torch.Tensor, W: int) -> torch.Tensor:
+    """uint8[rows, W] SSW codes: lane l of a row reads the transformed
+    segment at base + dirn * l; lanes >= rlen get the pad code 4."""
+    li = torch.arange(W, device=both.device)[None, :]
+    p = (base.long()[:, None] + dirn.long()[:, None] * li).clamp(0, N - 1)
+    sel = is_tr[scan_idx.long()].long()
+    byte = both[(sel[:, None] * S + seg_idx.long()[:, None]) * N + p]
+    code = lut_s[scan_idx.long()[:, None], byte.long()]
+    return torch.where(li < rlens.long()[:, None], code, 4).to(torch.uint8)
+
+
+def window_pass_ref(codes: torch.Tensor, qp: torch.Tensor,
+                    offs: torch.Tensor, terms: torch.Tensor,
+                    rlens: torch.Tensor, mreals: torch.Tensor,
+                    m: int) -> torch.Tensor:
+    """Plain version of both kernels: one exact DP column step at a time
+    over all rows (kernels/xla.py:window_pass_xla, which states the
+    semantics).  codes uint8[R, W]; qp int32[3, Mp]; per-row int32[R]
+    offs, terms, rlens, mreals -> int32[R, 3] (best, end_col, end_row)."""
+    R, W = codes.shape
+    Mp = qp.shape[1]
+    dev = codes.device
+    idx = torch.arange(Mp, dtype=torch.int32, device=dev)
+    q, hi, lo = qp[0][None, :], qp[1][None, :], qp[2][None, :]
+    offs, terms, rlens, mreals = (a.to(torch.int32)
+                                  for a in (offs, terms, rlens, mreals))
+    smask = idx[None, :] >= offs[:, None]  # zero profile below the offset
+    cmask = idx[None, :] < mreals[:, None]  # column max incl. phantom rows
+    rmask = (idx[None, :] < m) & smask  # end_row over real rows only
+    fbias = idx * GAP_EXTEND
+    foff = GAP_OPEN + (idx - 1) * GAP_EXTEND
+    h = torch.zeros(R, Mp, dtype=torch.int32, device=dev)
+    e = torch.zeros_like(h)
+    zero = torch.zeros(R, 1, dtype=torch.int32, device=dev)
+    neg = torch.full((R, 1), _NEG, dtype=torch.int32, device=dev)
+    best = torch.zeros(R, dtype=torch.int32, device=dev)
+    ecol = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    erow = torch.full((R,), m - 1, dtype=torch.int32, device=dev)
+    act = torch.ones(R, dtype=torch.bool, device=dev)
+    cols = codes.to(torch.int32)
+    # columns at or past every row's rlen can change nothing
+    for k in range(min(W, int(rlens.max()) if R else 0)):
+        code = cols[:, k:k + 1]
+        s = torch.where(smask, torch.where(code == q, hi, lo), 0)
+        e = torch.maximum(e - GAP_EXTEND, h - GAP_OPEN)
+        diag = torch.cat([zero, h[:, :-1]], 1)
+        tmp = torch.maximum(diag + s, e).clamp_min_(0)
+        run = torch.cummax(tmp + fbias, dim=1).values
+        f = torch.cat([neg, run[:, :-1]], 1) - foff
+        h = torch.maximum(tmp, f)
+        cm = torch.where(cmask, h, 0).amax(1)
+        rm = torch.where(rmask & (h == cm[:, None]), idx, _BIG).amin(1)
+        in_range = k < rlens
+        upd = act & (cm > best) & in_range
+        best = torch.where(upd, cm, best)
+        ecol = torch.where(upd, k, ecol)
+        erow = torch.where(upd, rm, erow)
+        act = act & ~((cm == terms) & in_range)
+    return torch.stack([best, ecol, erow], dim=1)
+
+
+def _check(name: str, codes: torch.Tensor, qp: torch.Tensor, rows: dict):
+    W = codes.shape[1]
+    if W not in WIDTHS or codes.dtype != torch.uint8 \
+            or not codes.is_contiguous():
+        raise ValueError(f"{name}: codes must be contiguous uint8[rows, W] "
+                         f"with W in {WIDTHS}")
+    if qp.device != codes.device or qp.dtype != torch.int32 \
+            or qp.shape[0] < 3 or not qp.is_contiguous():
+        raise ValueError(f"{name}: qp must be contiguous int32[3, Mp] on "
+                         f"{codes.device}")
+    for key, t in rows.items():
+        if t.device != codes.device or t.dtype != torch.int32 \
+                or t.shape != (codes.shape[0],) or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous int32[rows]"
+                             f" on {codes.device}")
+
+
+def window_fwd(codes: torch.Tensor, qp: torch.Tensor, rlens: torch.Tensor,
+               m: int, m16: int) -> torch.Tensor:
+    """K3: ends int32[rows, 3] of the uniform forward pass (off 0, mreal
+    m16, no terms).  CPU tensors take `window_pass_ref`; CUDA tensors
+    launch the kernel (counted in `window_fwd.launches`)."""
+    rows = codes.shape[0]
+    if codes.device.type == "cpu":
+        def fill(v):
+            return torch.full((rows,), v, dtype=torch.int32)
+
+        return window_pass_ref(codes, qp, fill(0), fill(-1), rlens,
+                               fill(m16), m)
+    if codes.device.type != "cuda":
+        raise ValueError(f"window_fwd: unsupported device {codes.device}")
+    _check("window_fwd", codes, qp, {"rlens": rlens})
+    if m16 > qp.shape[1]:
+        raise ValueError("window_fwd: m16 exceeds the query rows")
+    out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
+    lib = _build.lib()
+    with torch.cuda.device(codes.device):
+        err = lib.fasim_window_fwd(
+            codes.data_ptr(), codes.shape[1], qp.data_ptr(), qp.stride(0),
+            rlens.data_ptr(), rows, m, m16, out.data_ptr(),
+            _build.stream_of(codes))
+    _build.check(err, "fasim_window_fwd")
+    _build.count_launch(window_fwd)
+    return out
+
+
+def window_general(codes: torch.Tensor, qp: torch.Tensor,
+                   offs: torch.Tensor, terms: torch.Tensor,
+                   rlens: torch.Tensor, mreals: torch.Tensor,
+                   m: int) -> torch.Tensor:
+    """K4: ends int32[rows, 3] with per-row offs, terms and mreals.  CPU
+    tensors take `window_pass_ref`; CUDA tensors launch the kernel
+    (counted in `window_general.launches`)."""
+    if codes.device.type == "cpu":
+        return window_pass_ref(codes, qp, offs, terms, rlens, mreals, m)
+    if codes.device.type != "cuda":
+        raise ValueError(
+            f"window_general: unsupported device {codes.device}")
+    _check("window_general", codes, qp,
+           {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
+    rows = codes.shape[0]
+    out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
+    lib = _build.lib()
+    with torch.cuda.device(codes.device):
+        err = lib.fasim_window_general(
+            codes.data_ptr(), codes.shape[1], qp.data_ptr(), qp.stride(0),
+            offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),
+            rlens.data_ptr(), rows, m, out.data_ptr(),
+            _build.stream_of(codes))
+    _build.check(err, "fasim_window_general")
+    _build.count_launch(window_general)
+    return out
+
+
+window_fwd.launches = 0
+window_general.launches = 0

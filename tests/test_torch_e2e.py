@@ -1,0 +1,109 @@
+"""End to end through the port's CLI (`python -m fasim_tpu_torch.cli
+--tpu-engine torch`, the kernels' plain versions on the CPU): output
+files byte-identical to the committed goldens, stdout too except the
+`Running time is` line (as tests/test_e2e_golden.py checks the JAX
+package).  Also: the port never loads jax, and the CUDA engine raises
+without a device instead of falling back to the CPU."""
+
+import filecmp
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from conftest import ORACLE
+
+GOLDEN = os.path.join(ORACLE, "golden")
+REPO = os.path.dirname(ORACLE)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "2"  # six xdist workers share the box
+    return env
+
+
+@pytest.mark.parametrize("case,f1,f2,extra", [
+    ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"]),
+    ("h19_default", "testDNA.fa", "H19.fa", []),
+    ("meg3_sub3", "meg3sub3.fa", "MEG3.fa", []),
+    ("neat1t", "testDNA.fa", "NEAT1t.fa", []),
+])
+def test_port_cli_byte_identical(tmp_path, case, f1, f2, extra):
+    golden_dir = os.path.join(GOLDEN, case)
+    shutil.copy(os.path.join(ORACLE, f1), tmp_path)
+    shutil.copy(os.path.join(ORACLE, f2), tmp_path)
+    out = tmp_path / "out"
+    out.mkdir()
+    r = subprocess.run(
+        [sys.executable, "-m", "fasim_tpu_torch.cli", "-f1", f1, "-f2", f2,
+         "-O", "out/", "--tpu-stdout-compat", "true", "--tpu-engine",
+         "torch", *extra],
+        cwd=tmp_path, env=_env(), check=True, capture_output=True,
+        timeout=600)
+    produced = sorted(os.listdir(out))
+    expected = sorted(f for f in os.listdir(golden_dir) if f != "stdout.txt")
+    assert produced == expected
+    for name in expected:
+        assert filecmp.cmp(out / name, os.path.join(golden_dir, name),
+                           shallow=False), f"{case}/{name} differs"
+
+    def strip(text):
+        return [ln for ln in text.splitlines()
+                if not ln.startswith("Running time is")]
+
+    with open(os.path.join(golden_dir, "stdout.txt")) as f:
+        assert strip(r.stdout.decode()) == strip(f.read()), case
+
+
+_NO_JAX = """
+import sys
+import numpy as np
+import fasim_tpu_torch.cli
+import fasim_tpu_torch.scan.batched
+from fasim_tpu import rules
+from fasim_tpu_torch.kernels import _build, engine, pack, scan, window
+eng = engine.TorchScanEngine(np.frombuffer(b"ACGTACGGTA", np.uint8).copy())
+eng.setup_scans(rules.scan_list(0, 0))
+eng.setup_windows(np.frombuffer(b"ACGTACGGTA", np.uint8).copy())
+segs = np.frombuffer(b"TTACGTACGGTAGG" * 4, np.uint8).reshape(1, -1).copy()
+out = eng.scan_segments_packed(segs, np.array([segs.shape[1]], np.int32))
+assert int(out[0].max()) > 0
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok")
+"""
+
+
+def test_port_never_imports_jax():
+    r = subprocess.run([sys.executable, "-c", _NO_JAX], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("engine", ["cuda", "auto"])
+def test_cuda_engine_raises_without_device(engine, monkeypatch):
+    """`cuda` (and `auto`) never pick the CPU silently."""
+    import torch
+
+    from fasim_tpu.config import TpuConfig
+    from fasim_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.make_engine(TpuConfig(engine=engine),
+                        np.frombuffer(b"ACGT", np.uint8).copy())
+
+
+def test_torch_engine_is_cpu():
+    from fasim_tpu.config import TpuConfig
+    from fasim_tpu_torch import cli
+
+    eng = cli.make_engine(TpuConfig(engine="torch"),
+                          np.frombuffer(b"ACGT", np.uint8).copy())
+    assert eng.device.type == "cpu"
+    assert cli.make_engine(TpuConfig(engine="numpy"), None) is None

@@ -1,0 +1,292 @@
+"""Port's candidate-window passes (K3 / K4 plain version through
+TorchScanEngine on the CPU) vs the JAX package: `XlaScanEngine` (exact
+everywhere) and, at small buckets, the Pallas kernels in interpret mode
+as tests/test_window_pass.py runs them.
+
+Every output is int32 (best, end_col, end_row): the tolerance is 0.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fasim_tpu import rules
+from fasim_tpu.config import GAP_EXTEND, GAP_OPEN
+from fasim_tpu.kernels import align as kalign
+from fasim_tpu.kernels.xla import XlaScanEngine, _window_qp
+from fasim_tpu_torch.kernels import engine as engine_mod
+from fasim_tpu_torch.kernels import window
+from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _ru(x, m):
+    return (x + m - 1) // m * m
+
+
+def _rna(rng, m):
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, m)].copy()
+
+
+def _engines(rna, scans=None):
+    xla = XlaScanEngine(rna)
+    port = TorchScanEngine(rna)
+    for eng in (xla, port):
+        if scans is not None:
+            eng.setup_scans(scans)
+        eng.setup_windows(rna)
+    return xla, port
+
+
+def _segments(rng, lens, n):
+    segs = np.zeros((len(lens), n), np.uint8)
+    for i, ln in enumerate(lens):
+        segs[i, :ln] = np.frombuffer(b"ACGTN", np.uint8)[
+            rng.integers(0, 5, ln)]
+    return segs, np.asarray(lens, np.int32)
+
+
+def _fwd_spec(rng, rows, lens, n_scans, rlo, rhi, m16):
+    spec = {
+        "seg_idx": rng.integers(0, len(lens), rows).astype(np.int32),
+        "scan_idx": rng.integers(0, n_scans, rows).astype(np.int32),
+        "dirn": np.ones(rows, np.int32),
+        "rlens": rng.integers(rlo, rhi + 1, rows).astype(np.int32),
+        "offs": np.zeros(rows, np.int32),
+        "terms": np.full(rows, -1, np.int32),
+        "mreals": np.full(rows, m16, np.int32),
+    }
+    base = np.empty(rows, np.int32)
+    for r in range(rows):
+        n = lens[spec["seg_idx"][r]]
+        w = min(int(spec["rlens"][r]), int(n))
+        spec["rlens"][r] = w
+        base[r] = rng.integers(0, n - w + 1)
+    spec["base"] = base
+    return spec
+
+
+def test_window_qp_matches_xla():
+    rng = np.random.default_rng(1)
+    rna = np.frombuffer(b"ACGTUN", np.uint8)[rng.integers(0, 6, 77)]
+    np.testing.assert_array_equal(window.window_qp(rna), _window_qp(rna))
+
+
+@pytest.mark.parametrize("rev", [False, True])
+def test_window_pass_matches_xla(rev):
+    """Codes interface with random offs, terms, rlens and mreals."""
+    rng = np.random.default_rng(21 + rev)
+    m = 143
+    xla, port = _engines(_rna(rng, m))
+    R, W = 29, 128
+    codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
+    rlens = rng.integers(4, W + 1, R).astype(np.int32)
+    offs = rng.integers(0, m // 2, R).astype(np.int32)
+    terms = np.where(rng.random(R) < 0.5, -1,
+                     rng.integers(5, 60, R)).astype(np.int32)
+    mreals = (m + rng.integers(0, 16, R)).astype(np.int32)
+    a = np.asarray(xla.window_pass(codes, offs, terms, rlens, mreals,
+                                   rev=rev))
+    b = port.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
+    np.testing.assert_array_equal(b, a)
+
+
+def test_window_pass_specs_vs_xla_and_pallas():
+    """Mixed forward / reversed reads with offs, terms and mreals through
+    the production specs interface: port == XLA == Pallas (interpret)."""
+    from fasim_tpu.kernels.tpu import TpuScanEngine
+
+    rng = np.random.default_rng(7)
+    m = 131
+    rna = _rna(rng, m)
+    scans = rules.scan_list(0, 0)
+    xla, port = _engines(rna, scans)
+    tpu = TpuScanEngine(rna, interpret=True)
+    tpu.setup_scans(scans)
+    tpu.setup_windows(rna)
+    segs, lens = _segments(rng, [640, 503, 640, 77], 640)
+    R = 37
+    spec = {
+        "seg_idx": rng.integers(0, 4, R).astype(np.int32),
+        "scan_idx": rng.integers(0, len(scans), R).astype(np.int32),
+        "dirn": np.where(rng.random(R) < 0.5, 1, -1).astype(np.int32),
+        "rlens": rng.integers(4, 120, R).astype(np.int32),
+        "offs": rng.integers(0, m // 2, R).astype(np.int32),
+        "terms": np.where(rng.random(R) < 0.5, -1,
+                          rng.integers(5, 60, R)).astype(np.int32),
+        "mreals": (m + rng.integers(0, 16, R)).astype(np.int32),
+    }
+    base = np.empty(R, np.int32)
+    for r in range(R):
+        n = lens[spec["seg_idx"][r]]
+        w = min(int(spec["rlens"][r]), int(n))
+        spec["rlens"][r] = w
+        base[r] = (rng.integers(0, n - w + 1) if spec["dirn"][r] == 1
+                   else rng.integers(w - 1, n))
+    spec["base"] = base
+    for rev in (False, True):
+        a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=rev))
+        b = tpu.window_pass_specs(segs, lens, spec, rev=rev)
+        c = port.window_pass_specs(segs, lens, spec, rev=rev)
+        np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(c, a)
+
+
+@pytest.mark.parametrize("rlo,rhi", [(4, 48), (25, 64), (65, 96),
+                                     (97, 128), (129, 196), (197, 256)])
+def test_forward_width_classes(rlo, rhi):
+    """Uniform forward specs of every width class, including rlens in
+    (196, 256] (beyond the Pallas v3 kernel's phased prefix cover,
+    ROADMAP.md section 3): port == XLA; port == Pallas v3 (interpret,
+    small buckets) up to 196."""
+    rng = np.random.default_rng(rhi)
+    m = 131
+    rna = _rna(rng, m)
+    scans = rules.scan_list(0, 0)
+    xla, port = _engines(rna, scans)
+    segs, lens = _segments(rng, [512, 301, 277], 512)
+    spec = _fwd_spec(rng, 11, lens, len(scans), rlo, rhi, _ru(m, 16))
+    a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=False))
+    c = port.window_pass_specs(segs, lens, spec, rev=False)
+    np.testing.assert_array_equal(c, a)
+    if rhi <= 196:
+        from fasim_tpu.kernels.tpu import TpuScanEngine
+
+        tpu = TpuScanEngine(rna, interpret=True)
+        tpu.setup_scans(scans)
+        tpu.setup_windows(rna)
+        R = 16
+        tpu._win_R = {k: R for k in tpu._win_R}
+        tpu.WIN_BUCKETS = {w: (R,) + v[1:]
+                           for w, v in tpu.WIN_BUCKETS.items()}
+        n0 = tpu.n_v3_calls
+        b = tpu.window_pass_specs(segs, lens, spec, rev=False)
+        assert tpu.n_v3_calls == n0 + 1
+        np.testing.assert_array_equal(c, b)
+
+
+def test_reverse_terms_offs_mreals():
+    """Reverse pass of real forward ends: offset rows, terminate break and
+    the per-row phantom bound, for both lane layouts — against XLA and
+    the golden striped-pass model."""
+    rng = np.random.default_rng(97)
+    m = 97
+    rna = _rna(rng, m)
+    xla, port = _engines(rna)
+    q_idx = rules.SSW_ENC[rna]
+    cases = []
+    while len(cases) < 20:
+        w = int(rng.integers(8, 80))
+        ref = rng.integers(0, 5, w).astype(np.int32)
+        best, ecol, erow, _ = kalign._sw_end_pass(
+            q_idx, ref, GAP_OPEN, GAP_EXTEND, rules.SSW_MAT, 16, False, None)
+        if best:
+            cases.append((ref, best, ecol, erow))
+    R, W = len(cases), 80
+    codes = np.full((R, W), 4, np.uint8)
+    offs, terms, rlens, mreals = (np.empty(R, np.int32) for _ in range(4))
+    for lanes in (16, 8):
+        for r, (ref, best, ecol, erow) in enumerate(cases):
+            rev_ref = ref[ecol::-1]
+            rlens[r] = len(rev_ref)
+            codes[r, :len(rev_ref)] = rev_ref
+            offs[r] = m - 1 - erow
+            terms[r] = best
+            mreals[r] = m + (-(erow + 1)) % lanes
+        a = np.asarray(xla.window_pass(codes, offs, terms, rlens, mreals,
+                                       rev=True))
+        b = port.window_pass(codes, offs, terms, rlens, mreals, rev=True)
+        np.testing.assert_array_equal(b, a)
+        for r, (ref, best, ecol, erow) in enumerate(cases):
+            rb, rc, rr, _ = kalign._sw_end_pass(
+                q_idx[erow::-1], ref[ecol::-1].astype(np.int64), GAP_OPEN,
+                GAP_EXTEND, rules.SSW_MAT, lanes, False, best)
+            assert (b[r, 0], b[r, 1], b[r, 2] - offs[r]) == (rb, rc, rr)
+
+
+def test_routing_uniform_forward_to_k3(monkeypatch):
+    """Uniform forward specs go to K3 (window_fwd), all others to K4
+    (window_general); the gate reads the spec columns by name."""
+    calls = []
+    for name in ("window_fwd", "window_general"):
+        real = getattr(engine_mod, name)
+
+        def spy(*args, _name=name, _real=real):
+            calls.append(_name)
+            return _real(*args)
+
+        monkeypatch.setattr(engine_mod, name, spy)
+    rng = np.random.default_rng(5)
+    m = 60
+    rna = _rna(rng, m)
+    scans = rules.scan_list(0, 0)
+    _, port = _engines(rna, scans)
+    segs, lens = _segments(rng, [300, 200], 320)
+    spec = _fwd_spec(rng, 9, lens, len(scans), 10, 120, _ru(m, 16))
+    port.window_pass_specs(segs, lens, spec, rev=False)
+    assert calls and set(calls) == {"window_fwd"}
+    for key, val in (("offs", 1), ("terms", 7), ("mreals", m + 1),
+                     ("dirn", -1)):
+        calls.clear()
+        bad = dict(spec)
+        bad[key] = spec[key].copy()
+        bad[key][3] = val
+        if key == "dirn":
+            bad["base"] = spec["base"] + spec["rlens"] - 1
+        port.window_pass_specs(segs, lens, bad, rev=False)
+        assert set(calls) == {"window_general"}, key
+    calls.clear()
+    port.window_pass_specs(segs, lens, spec, rev=True)
+    assert set(calls) == {"window_general"}
+
+
+def test_align_chain_matches_align_window_py():
+    """Device fwd + device rev + host banded on the port engine == the
+    golden single-window alignment."""
+    from fasim_tpu.scan.candidates import align_via_window_pass
+
+    rng = np.random.default_rng(151)
+    m = 151
+    rna = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, m)]
+    _, port = _engines(rna)
+    q_idx = rules.SSW_ENC[rna]
+    n_checked = 0
+    for _ in range(30):
+        w = int(rng.integers(10, 120))
+        if rng.random() < 0.5:
+            ref = rng.integers(0, 5, w).astype(np.int32)
+        else:
+            lo = int(rng.integers(0, m - 5))
+            piece = q_idx[lo:lo + min(w, m - lo)].astype(np.int32)
+            muts = rng.random(len(piece)) < 0.15
+            piece[muts] = rng.integers(0, 5, muts.sum())
+            ref = np.concatenate([piece, rng.integers(0, 5, w)])[:w]
+        golden = kalign.align_window_py(q_idx, ref, rules.SSW_MAT)
+        got = align_via_window_pass(port, q_idx, ref.astype(np.uint8),
+                                    rules.SSW_MAT)
+        assert got.sw_score == golden.sw_score
+        if golden.sw_score:
+            assert (got.ref_begin, got.ref_end, got.query_begin,
+                    got.query_end, got.cigar) == (
+                golden.ref_begin, golden.ref_end, golden.query_begin,
+                golden.query_end, golden.cigar)
+            n_checked += 1
+    assert n_checked >= 8
+
+
+def test_window_kernels_reject_other_devices():
+    meta = torch.device("meta")
+    codes = torch.zeros(2, 64, dtype=torch.uint8, device=meta)
+    qp = torch.zeros(3, 128, dtype=torch.int32, device=meta)
+    rows = torch.zeros(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        window.window_fwd(codes, qp, rows, 10, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        window.window_general(codes, qp, rows, rows, rows, rows, 10)
