@@ -15,13 +15,24 @@ Phases, each printing one line with its seconds:
      scan_colmax (main-path batch, ragged, byte-saturating, impure with
      a U query, a NEAT1-length query, a 50 kb segment), the candidate
      packing against its numpy mirror, K3 window_fwd on every width
-     class and K4 window_general on the specs of a real candidate stage;
-  4. e2e     — the port's CLI in this process on oracle/golden/h19_lg40
-     and oracle/golden/meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records),
-     every output file and stdout (except "Running time is") byte for
-     byte, with every kernel's launch count > 0;
+     class, K4 window_general on the specs of a real candidate stage, K5
+     scan_codes_colmax (the per-segment shape in both alphabets, a packed
+     batch, impure codes with a U query, a GA-rich row past 251, a
+     NEAT1-length query) and the engine's per-segment call on the card
+     against the same call on a CPU engine;
+  4. e2e     — in this process, every output file and stdout (except
+     "Running time is") byte for byte against oracle/golden, each run
+     with the launch counts set to 0 just before it and read just after,
+     and the kernels of its path launched: h19_lg40, h19F_trunc and
+     h19_F (both -F) through the port's CLI, h19_lg40 through the
+     batched driver with TorchScanEngine(use_v2=False) (K5), meg3_sub16
+     through the per-segment path scan/pipeline.scan_file (K5), and
+     meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records) through the CLI (K1,
+     K3, K4);
   5. times   — each kernel and its plain version at main-path shapes
-     (CUDA events around synchronized runs).
+     (CUDA events around synchronized runs), and each kernel's bound: the
+     larger of its integer operations over the card's int32 rate (SMs x
+     64 lanes x the max SM clock) and its bytes over 3.35 TB/s.
 
 Then one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
@@ -46,6 +57,14 @@ ORACLE = os.path.join(REPO, "oracle")
 SEED = 20261016
 MEG3_M = 1582  # the MEG3 lncRNA of oracle/MEG3.fa
 NEAT1_M = 22767  # the NEAT1 lncRNA of oracle/NEAT1.fa
+MEM_BPS = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA's data sheet)
+INT32_LANES = 64  # INT32 units per SM (Hopper)
+# integer operations per DP cell, counted from the kernels' inner loops
+# (K1 / K5 in the ssw alphabet: compare + select for the score, three
+# max-with-add chains, the column max; K3 / K4 add the per-column row
+# statistics, K4 also the zero-profile prefix select)
+OPS_PER_CELL = {"scan_colmax": 13, "window_fwd": 18, "window_general": 19,
+                "scan_codes_colmax": 13}
 
 
 class SmokeError(AssertionError):
@@ -67,6 +86,8 @@ class Smoke:
                        "fasim_tpu/kernels/tpu.py:1796"),
         "window_general": ("fasim_tpu_torch/csrc/window.cu",
                            "fasim_tpu/kernels/tpu.py:1529"),
+        "scan_codes_colmax": ("fasim_tpu_torch/csrc/scan_codes.cu",
+                              "fasim_tpu/kernels/tpu.py:154"),
     }
 
     def __init__(self):
@@ -81,6 +102,7 @@ class Smoke:
         self.ms = {}
         self.plain_ms = {}
         self.launches = {}
+        self.work = {}  # kernel -> (integer ops, bytes) of its timed call
 
     # -- helpers ---------------------------------------------------------
 
@@ -99,7 +121,7 @@ class Smoke:
         return segs, lens
 
     def engine(self, rna):
-        from fasim_tpu import rules
+        from fasim_tpu_torch import rules
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
 
         eng = TorchScanEngine(rna, device=self.dev)
@@ -146,6 +168,17 @@ class Smoke:
         require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
         self.smi = smi.stdout.strip().splitlines()[0]
         print(self.smi)
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+        require(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        mhz = float(clk.stdout.strip().splitlines()[0])
+        self.int32_ops = sms * INT32_LANES * mhz * 1e6
+        print(f"int32 rate: {sms} SMs x {INT32_LANES} lanes x {mhz:.0f} MHz "
+              f"(max SM clock) = {self.int32_ops:.4g} ops/s; memory "
+              f"{MEM_BPS:.4g} B/s")
         print(f"device: {torch.cuda.get_device_name(0)}, "
               f"count {torch.cuda.device_count()}, torch {torch.__version__},"
               f" CUDA {torch.version.cuda}")
@@ -291,6 +324,92 @@ class Smoke:
                     n += codes.shape[0]
             print(f"  K4 {'reverse' if rev else 'forward'} specs of a "
                   f"real candidate stage: {n} rows equal")
+        self.k5_checks()
+
+    # -- K5 --------------------------------------------------------------
+
+    def k5_codes(self, which: str, rows, n_pad: int):
+        """uint8[1, len(rows), n_pad] engine codes of byte rows, ragged
+        rows padded with the alphabet's out-of-alphabet code."""
+        np = self.np
+        from fasim_tpu_torch import rules
+        from fasim_tpu_torch.kernels.scan_codes import PAD_CODE
+
+        enc = rules.SSW_ENC if which == "ssw" else rules.THRESH_ENC
+        out = np.full((1, len(rows), n_pad), PAD_CODE[which], np.uint8)
+        for i, r in enumerate(rows):
+            out[0, i, :len(r)] = enc[r]
+        return out
+
+    def k5_case(self, name: str, rna, rows, n_pad: int,
+                alphabets=("ssw", "thresh"), shape=None):
+        """K5 kernel vs plain on the same device inputs, per alphabet;
+        returns the last alphabet's kernel output."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.kernels.scan_codes import (
+            scan_codes_colmax, scan_codes_colmax_ref)
+
+        eng = TorchScanEngine(rna, device=self.dev)
+        got = None
+        for which in alphabets:
+            codes = self.k5_codes(which, rows, n_pad)
+            if shape is not None:
+                codes = codes.reshape(shape)
+            codes_d = torch.from_numpy(codes).to(self.dev)
+            args = (codes_d, eng._dev[f"qprops_{which}"], eng.m16, which)
+            got = scan_codes_colmax(*args)
+            self.compare("scan_codes_colmax", got, scan_codes_colmax_ref(
+                *args), f"{name}/{which}")
+        print(f"  K5 {name}: {tuple(codes.shape)} m={len(rna)} "
+              f"{'+'.join(alphabets)} max={int(got.max())} equal")
+        return got
+
+    def k5_checks(self) -> None:
+        np = self.np
+        T = 48
+        rna = self.dna(MEG3_M)
+        self.k5_rna = rna
+        self.k5_seg = [self.dna(5000) for _ in range(T)]
+        self.k5_case("per-segment shape", rna, self.k5_seg, 5000)
+        packed = [self.dna(5120) for _ in range(64 * T)]
+        self.k5_case("packed batch", rna, packed, 5120, ("ssw",),
+                     shape=(64, T, 5120))
+        rna_u = rna.copy()
+        rna_u[self.rng.integers(0, len(rna_u), 20)] = ord("U")
+        impure = [self.dna(int(n), b"ACGTNUacgt")
+                  for n in self.rng.integers(1200, 1801, T)]
+        self.k5_case("impure + U query, ragged", rna_u, impure, 1800)
+        ga = np.frombuffer(b"GA" * (MEG3_M // 2), np.uint8).copy()
+        sat = [np.concatenate([self.dna(300), ga[:600], self.dna(400)])
+               for _ in range(8)]
+        got = self.k5_case("GA-rich past 251", ga, sat, 1300)
+        require(int(got.max()) > 255, "K5 GA rows did not pass 255")
+        self.k5_case("NEAT1-length query", self.dna(NEAT1_M),
+                     [self.dna(900) for _ in range(T)], 900)
+        self.k5_engine_call()
+
+    def k5_engine_call(self) -> None:
+        """The per-segment call engine(rna, seq2_list) on the card against
+        the same call on a CPU engine, for one real MEG3 segment."""
+        from fasim_tpu_torch import rules
+        from fasim_tpu_torch.io import fasta
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+        _, rna = fasta.read_rna(os.path.join(ORACLE, "MEG3.fa"))
+        seg = fasta.read_dna(os.path.join(ORACLE, "meg3sub3.fa"))[0].seq
+        seq2 = [rules.make_scan_strings(seg, s)[0]
+                for s in rules.scan_list(0, 0)]
+        t0 = time.perf_counter()
+        got = TorchScanEngine(rna, device=self.dev)(rna, seq2)
+        want = TorchScanEngine(rna, device="cpu")(rna, seq2)
+        for g, w, what in zip(got, want, ("thresh", "colmax")):
+            self.compare("scan_codes_colmax", self.torch.from_numpy(g),
+                         self.torch.from_numpy(w), f"engine call {what}, "
+                         "cuda vs cpu")
+        print(f"  K5 engine(rna, seq2_list) on a {len(seg)} nt MEG3 segment:"
+              f" cuda == cpu (max thresh {int(got[0].max())}, "
+              f"{time.perf_counter() - t0:.1f} s)")
 
     def spec_codes(self, segs_c, lens_c, spec, rev):
         """Per width class: (W, codes, spec columns) on the card."""
@@ -325,8 +444,8 @@ class Smoke:
     def capture_specs(self):
         """Run the port's batched scan on oracle/meg3sub64.fa (64 records, one
         full 64-segment batch) x MEG3 and keep every window dispatch."""
-        from fasim_tpu.config import Params
-        from fasim_tpu.io import fasta
+        from fasim_tpu_torch.config import Params
+        from fasim_tpu_torch.io import fasta
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
         from fasim_tpu_torch.scan.batched import scan_records
 
@@ -356,7 +475,23 @@ class Smoke:
 
     # -- phase 4 ---------------------------------------------------------
 
-    def run_golden(self, case: str, f1: str, f2: str, extra: list) -> float:
+    def scan_for(self, driver: str):
+        """The scan callable of fasim_tpu_torch.cli.run for a driver other
+        than the CLI's own: per-segment (scan/pipeline.scan_file with a
+        cuda engine) or batched with TorchScanEngine(use_v2=False)."""
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.scan.batched import scan_file_batched
+        from fasim_tpu_torch.scan.pipeline import scan_file
+
+        if driver == "per-segment":
+            return lambda p, rna: scan_file(
+                p, engine=TorchScanEngine(rna, device=self.dev))
+        require(driver == "batched-v1", f"unknown driver {driver}")
+        return lambda p, rna: scan_file_batched(
+            p, TorchScanEngine(rna, device=self.dev, use_v2=False))
+
+    def run_golden(self, case: str, f1: str, f2: str, extra: list,
+                   driver: str) -> float:
         import filecmp
 
         from fasim_tpu_torch import cli
@@ -369,11 +504,16 @@ class Smoke:
             buf = io.StringIO()
             cwd = os.getcwd()
             os.chdir(tmp)
+            argv = ["-f1", f1, "-f2", f2, "-O", "out/",
+                    "--tpu-stdout-compat", "true", *extra]
             try:
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
-                    rc = cli.main(["-f1", f1, "-f2", f2, "-O", "out/",
-                                   "--tpu-stdout-compat", "true", *extra])
+                    if driver == "cli":
+                        rc = cli.main(argv)
+                    else:
+                        p, tpu = cli.parse_args(argv)
+                        rc = cli.run(p, tpu, self.scan_for(driver))
                 self.torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
@@ -400,38 +540,57 @@ class Smoke:
         return wall
 
     def reset_counts(self) -> None:
-        from fasim_tpu_torch.kernels import scan, window
+        from fasim_tpu_torch.kernels import scan, scan_codes, window
 
         scan.scan_colmax.launches = 0
         window.window_fwd.launches = 0
         window.window_general.launches = 0
+        scan_codes.scan_codes_colmax.launches = 0
 
     def read_counts(self) -> dict:
-        from fasim_tpu_torch.kernels import scan, window
+        from fasim_tpu_torch.kernels import scan, scan_codes, window
 
         return {"scan_colmax": scan.scan_colmax.launches,
                 "window_fwd": window.window_fwd.launches,
-                "window_general": window.window_general.launches}
+                "window_general": window.window_general.launches,
+                "scan_codes_colmax": scan_codes.scan_codes_colmax.launches}
 
-    # (golden case, DNA, RNA, extra flags); the last is the real-size run
-    GOLDENS = (("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"]),
-               ("meg3_full", "meg3dna.fa", "MEG3.fa", []))
+    K135 = ("scan_colmax", "window_fwd", "window_general")
+    # (golden case, DNA, RNA, extra flags, driver, kernels of its path,
+    # whether it is the main path whose counts the report gives)
+    GOLDENS = (
+        ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli", K135,
+         False),
+        ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
+         ("scan_colmax",), False),
+        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli",
+         ("scan_colmax",), False),
+        ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "batched-v1",
+         ("scan_codes_colmax", "window_fwd", "window_general"), False),
+        ("meg3_sub16", "meg3sub16.fa", "MEG3.fa", [], "per-segment",
+         ("scan_codes_colmax",), True),
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", K135, True),
+    )
 
     def phase_e2e(self) -> None:
-        for case, f1, f2, extra in self.GOLDENS:
+        self.walls = {}
+        for case, f1, f2, extra, driver, kernels, main in self.GOLDENS:
             self.reset_counts()
-            wall = self.run_golden(case, f1, f2, extra)
+            wall = self.run_golden(case, f1, f2, extra, driver)
             counts = self.read_counts()
-            print(f"  {case}: byte-identical, wall {wall:.2f} s, "
+            print(f"  {case} ({driver}): byte-identical, wall {wall:.3f} s, "
                   f"launches {counts}")
-            for k, n in counts.items():
-                require(n > 0, f"{case}: kernel {k} was never launched")
-            self.launches = counts  # the last run: MEG3-full
-            self.e2e_wall = wall
+            for k in kernels:
+                require(counts[k] > 0, f"{case} ({driver}): kernel {k} was "
+                        "never launched")
+            self.walls[f"{case} ({driver})"] = wall
+            if main:
+                self.launches.update({k: counts[k] for k in kernels})
 
     # -- phase 5 ---------------------------------------------------------
 
     def phase_times(self) -> None:
+        np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.pack import pack_candidates
         from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
@@ -452,7 +611,11 @@ class Smoke:
         self.plain_ms["scan_colmax"] = self.cuda_ms(
             lambda: scan_colmax_ref(*args), 1, warm=False)
         S, N = segs.shape
-        print(f"  K1 scan_colmax, ssw pass, S={S} T=48 N={N} m={len(rna)}: "
+        T = d["lut6_s"].shape[0]
+        self.work["scan_colmax"] = (
+            OPS_PER_CELL["scan_colmax"] * S * T * N * eng.m16,
+            2 * S * N + S * T * N + 4 * S * T + 4 * T * 7 + 16 * eng.m16)
+        print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
               f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
               f"{self.plain_ms['scan_colmax']:.3f} ms")
         cm, gm = scan_colmax(*args)
@@ -485,21 +648,83 @@ class Smoke:
             self.ms[kernel] = self.cuda_ms(lambda: run(False), 5)
             self.plain_ms[kernel] = self.cuda_ms(lambda: run(True), 1,
                                                  warm=False)
+            # the rows each window needs: [off, max(mreal, m)) x rlen
+            rl = spec["rlens"].astype(np.int64)
+            top = np.maximum(spec["mreals"], m).astype(np.int64)
+            cells = int((rl * (top - spec["offs"])).sum())
+            rows = len(rl)
+            code_bytes = sum(int(c.numel()) for _, c, _ in parts)
+            self.work[kernel] = (OPS_PER_CELL[kernel] * cells,
+                                 code_bytes + rows * (16 if rev else 4)
+                                 + rows * 12 + 12 * m)
             widths = {W: int(c.shape[0]) for W, c, _ in parts}
             print(f"  {kernel}, {'reverse' if rev else 'forward'} dispatch "
-                  f"of {len(spec['rlens'])} rows (rows per width {widths}), "
+                  f"of {rows} rows (rows per width {widths}), "
                   f"m={m}: kernel {self.ms[kernel]:.3f} ms, plain "
                   f"{self.plain_ms[kernel]:.3f} ms")
+        self.k5_times()
+
+    def k5_times(self) -> None:
+        """K5 at the per-segment shape (both alphabets; the ssw pass is the
+        reported one) and at the packed-batch shape."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.kernels.scan_codes import (
+            scan_codes_colmax, scan_codes_colmax_ref)
+
+        rna = self.k5_rna
+        eng = TorchScanEngine(rna, device=self.dev)
+        shapes = {}
+        for which in ("thresh", "ssw"):
+            codes = torch.from_numpy(self.k5_codes(which, self.k5_seg,
+                                                   5000)).to(self.dev)
+            args = (codes, eng._dev[f"qprops_{which}"], eng.m16, which)
+            shapes[which] = self.cuda_ms(lambda: scan_codes_colmax(*args), 5)
+        plain = self.cuda_ms(lambda: scan_codes_colmax_ref(*args), 1,
+                             warm=False)
+        rows, N = codes.shape[1], codes.shape[2]
+        self.ms["scan_codes_colmax"] = shapes["ssw"]
+        self.plain_ms["scan_codes_colmax"] = plain
+        self.work["scan_codes_colmax"] = (
+            OPS_PER_CELL["scan_codes_colmax"] * rows * N * eng.m16,
+            rows * N + 4 * rows * N + 16 * eng.m16)
+        print(f"  K5 scan_codes_colmax, per-segment shape S=1 T={rows} "
+              f"N={N} m={len(rna)}: kernel ssw {shapes['ssw']:.3f} ms, "
+              f"thresh {shapes['thresh']:.3f} ms, plain (ssw) "
+              f"{plain:.3f} ms")
+        packed = torch.from_numpy(self.k5_codes(
+            "ssw", [self.dna(5120) for _ in range(64 * rows)], 5120).reshape(
+                64, rows, 5120)).to(self.dev)
+        args = (packed, eng._dev["qprops_ssw"], eng.m16, "ssw")
+        ms = self.cuda_ms(lambda: scan_codes_colmax(*args), 3)
+        cells = packed.numel() * eng.m16
+        print(f"  K5 scan_codes_colmax, packed batch S=64 T={rows} N=5120 "
+              f"m={len(rna)}, ssw: kernel {ms:.3f} ms "
+              f"({cells / ms / 1e6:.1f} G cell-updates/s; bound "
+              f"{self.bound(OPS_PER_CELL['scan_codes_colmax'] * cells, 0)[0]:.3f}"
+              f" ms)")
+
+    def bound(self, ops: float, nbytes: float):
+        """(least ms the card could take, the term that sets it)."""
+        t_ops = ops / self.int32_ops * 1e3
+        t_bytes = nbytes / MEM_BPS * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes \
+            else (t_bytes, "bytes")
 
     def report(self) -> dict:
         out = []
         for name, (src, replaces) in self.KERNELS.items():
+            bound_ms, bound_by = self.bound(*self.work[name])
+            # no single PyTorch call computes SW column maxima or window
+            # ends, so there is no library time to give
             out.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": self.launches.get(name, 0),
                         "max_abs_err": self.err[name],
                         "ms": self.ms.get(name),
-                        "plain_ms": self.plain_ms.get(name)})
+                        "plain_ms": self.plain_ms.get(name),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
         return {"kernels": out}
 
 
@@ -532,7 +757,8 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(f"MEG3-full wall {smoke.e2e_wall:.3f} s on {smoke.smi}")
+    for run, wall in smoke.walls.items():
+        print(f"wall {run}: {wall:.3f} s on {smoke.smi}")
     print(json.dumps(smoke.report()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,25 @@
 """Command line of the port: `python -m fasim_tpu_torch.cli`.
 
-The flags are fasim_tpu.cli's own (`parse_args`, so all 18 reference
-flags keep their atoi quirks), and the output goes through
-fasim_tpu.post.output.print_result, so files and stdout are byte-identical
-to the JAX package's.  `--tpu-engine` picks the engine:
+The reference's flag surface (initEnv, Fasim-LongTarget.cpp:269-377):
+-f1 -f2 -O -r -c -m -t -d -i -S -ni -na -pc -pt -o -F -ds -lg -C (long
+form with single dash, getopt_long_only style) plus the short aliases of
+its optstring; numeric flags keep atoi semantics.  `parse_args` is a copy
+of fasim_tpu.cli's, and the output goes through the port's
+post.output.print_result, so files and stdout are byte-identical to the
+JAX package's.  Framework flags keep the JAX package's --tpu- prefix.
+`--tpu-engine` picks the engine:
 
   * cuda (default; auto means cuda): TorchScanEngine on cuda:0 with the
-    hand-written kernels; raises when torch.cuda.is_available() is false;
-  * torch: TorchScanEngine on the CPU with the kernels' plain versions;
-  * numpy: the per-segment NumPy golden path (fasim_tpu.scan.pipeline).
+    hand-written kernels, batched driver; raises when
+    torch.cuda.is_available() is false;
+  * torch: TorchScanEngine on the CPU with the kernels' plain versions,
+    batched driver;
+  * numpy: the per-segment path (scan/pipeline.py) with the NumPy golden
+    engine (kernels/batch_np.py).
 
-Not ported yet: `-F`, streaming (--tpu-stream on) and more
-than one device.
+`-F` (exact SIM) runs on every engine.  Not ported yet (ROADMAP.md §1):
+the device SIM forward scan (--tpu-sim-device, FASIM_SIM_DEVICE=1), the
+streaming driver (--tpu-stream on) and more than one device.
 """
 
 from __future__ import annotations
@@ -23,8 +31,96 @@ import time
 import numpy as np
 import torch
 
-from fasim_tpu.cli import parse_args
-from fasim_tpu.config import TpuConfig
+from .config import Params, TpuConfig
+
+
+def _atoi(s: str) -> int:
+    """C atoi: optional sign + leading digits, 0 otherwise."""
+    s = s.strip()
+    i = 0
+    if i < len(s) and s[i] in "+-":
+        i += 1
+    j = i
+    while j < len(s) and s[j].isdigit():
+        j += 1
+    if j == i:
+        return 0
+    return int(s[:j])
+
+
+_VALUE_FLAGS = {
+    "f1": ("file1path", str), "f": ("file1path", str),
+    "f2": ("file2path", str), "s": ("file2path", str),
+    "O": ("outpath", str),
+    "r": ("rule", _atoi),
+    "c": ("cut_length", _atoi),
+    "m": ("min_score", _atoi),
+    "t": ("strand", _atoi),
+    "i": ("min_identity", _atoi),       # atoi despite float field (:340)
+    "S": ("min_stability", _atoi),      # atoi despite float field (:343)
+    "ni": ("nt_min", _atoi), "y": ("nt_min", _atoi),
+    "na": ("nt_max", _atoi), "z": ("nt_max", _atoi),
+    "pc": ("penalty_c", _atoi), "Y": ("penalty_c", _atoi),
+    "pt": ("penalty_t", _atoi), "Z": ("penalty_t", _atoi),
+    "o": ("overlap_length", _atoi),
+    "ds": ("c_distance", _atoi), "D": ("c_distance", _atoi),
+    "lg": ("c_length", _atoi), "E": ("c_length", _atoi),
+    "cn": ("corenum", _atoi), "C": ("corenum", _atoi),
+}
+
+
+def parse_args(argv: list[str]) -> tuple[Params, TpuConfig]:
+    p = Params()
+    tpu = TpuConfig()
+    i = 0
+    if not argv:
+        show_help()
+    while i < len(argv):
+        a = argv[i]
+        if not a.startswith("-"):
+            i += 1
+            continue
+        name = a.lstrip("-")
+        if name == "h" or name == "help":
+            show_help()
+        elif name == "d":
+            p.detail_output = True
+            i += 1
+        elif name == "F":
+            p.do_fast_sim = False
+            i += 1
+        elif name.startswith("tpu-"):
+            key = name[4:].replace("-", "_")
+            if not hasattr(tpu, key):
+                sys.exit(f"unknown flag --{name}")
+            cur = getattr(tpu, key)
+            val = argv[i + 1]
+            setattr(tpu, key, type(cur)(val) if not isinstance(cur, bool)
+                    else val.lower() in ("1", "true", "yes"))
+            i += 2
+        elif name in _VALUE_FLAGS:
+            field, conv = _VALUE_FLAGS[name]
+            if i + 1 >= len(argv):
+                sys.exit(f"flag -{name} requires a value")
+            setattr(p, field, conv(argv[i + 1]))
+            i += 2
+        else:
+            sys.exit(f"unknown flag {a}")
+    return p, tpu
+
+
+def show_help() -> None:
+    print("fasim_tpu_torch — triplex scanner on PyTorch and CUDA "
+          "(Fasim-LongTarget compatible)\n"
+          "usage: python -m fasim_tpu_torch.cli -f1 DNA.fa -f2 RNA.fa "
+          "-O outdir [-r N] [-c 5000] [-t 0] [-o 100]\n"
+          "       [-i 60] [-S 1] [-ni 20] [-na 100000] [-pc 0] [-pt -1000] "
+          "[-ds 15] [-lg 50] [-F] [-C N]\n"
+          "engine: --tpu-engine cuda (default) | torch (CPU) | numpy "
+          "(per-segment golden)\n"
+          "other: --tpu-segments-per-batch 64  --tpu-max-inflight 4  "
+          "--tpu-stdout-compat true  --tpu-profile true")
+    sys.exit(1)
 
 
 def make_engine(tpu: TpuConfig, rna: np.ndarray):
@@ -46,43 +142,57 @@ def make_engine(tpu: TpuConfig, rna: np.ndarray):
 
 
 def main(argv: list[str] | None = None) -> int:
-    from fasim_tpu.io import fasta
-    from fasim_tpu.post.output import print_result
-    from fasim_tpu.scan.pipeline import scan_file
-
+    from .kernels.batch_np import numpy_engine
     from .scan.batched import scan_file_batched
+    from .scan.pipeline import scan_file
 
     p, tpu = parse_args(sys.argv[1:] if argv is None else argv)
-    if not p.do_fast_sim or tpu.sim_device:
-        sys.exit("-F (exact SIM) is not ported to fasim_tpu_torch yet")
+    if tpu.sim_device or os.environ.get("FASIM_SIM_DEVICE", "0") == "1":
+        sys.exit("--tpu-sim-device / FASIM_SIM_DEVICE=1 (the -F forward "
+                 "scan on the device) is not ported to fasim_tpu_torch yet "
+                 "(ROADMAP.md §1, module 8)")
     if tpu.stream == "on":
-        sys.exit("--tpu-stream on is not ported to fasim_tpu_torch yet")
-    print("Searching triplexes using Fasim")
+        sys.exit("--tpu-stream on is not ported to fasim_tpu_torch yet "
+                 "(ROADMAP.md §1, module 7)")
+
+    def scan(p: Params, rna: np.ndarray):
+        engine = make_engine(tpu, rna)
+        if engine is None:
+            return scan_file(p, engine=numpy_engine)
+        return scan_file_batched(p, engine,
+                                 batch_pairs=tpu.segments_per_batch,
+                                 max_inflight=tpu.max_inflight)
+
+    return run(p, tpu, scan)
+
+
+def run(p: Params, tpu: TpuConfig, scan) -> int:
+    """One run: the reference's stdout lines around
+    `scan(p, rna) -> (records, lnc_name, rna, triplexes)` and the output
+    files.  `main` passes the scan `--tpu-engine` picks; a caller may pass
+    another driver or engine (chip_smoke.py runs the per-segment path on
+    the card through here)."""
+    from .io import fasta
+    from .post.output import print_result
+    from .profiling import STAGES
+
+    print(f"Searching triplexes using {'Fasim' if p.do_fast_sim else 'Sim'}")
     profile = tpu.profile or os.environ.get("FASIM_PROFILE", "") not in ("",
                                                                          "0")
     if profile:
-        from fasim_tpu.profiling import STAGES
-
         STAGES.start_run()
     t_start = time.process_time()
-    _, rna_probe = fasta.read_rna(p.file2path)
-    engine = make_engine(tpu, rna_probe)
+    lnc_probe, rna_probe = fasta.read_rna(p.file2path)
     if tpu.stdout_compat:
         # the reference interleaves these with the scan; the final stream
         # is identical when printed up front (record/segment order)
-        lnc_probe, _ = fasta.read_rna(p.file2path)
         print(lnc_probe)
         for rec in fasta.iter_dna(p.file1path):
             _, starts = fasta.cut_sequence(rec.seq, p.cut_length,
                                            p.overlap_length)
             for s in starts:
                 print(f"dnaPos = {s}")
-    if engine is None:
-        records, lnc_name, rna, tlist = scan_file(p)
-    else:
-        records, lnc_name, rna, tlist = scan_file_batched(
-            p, engine, batch_pairs=tpu.segments_per_batch,
-            max_inflight=tpu.max_inflight)
+    records, lnc_name, rna, tlist = scan(p, rna_probe)
     first = records[0]
     print_result(p, first.species, lnc_name, tlist, first.chro_tag,
                  len(first.seq), first.start_genome,
@@ -93,8 +203,6 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Running time is {time.process_time() - t_start:.6g}")
     if profile:
         import json
-
-        from fasim_tpu.profiling import STAGES
 
         print("FASIM_PROFILE " + json.dumps(STAGES.report()),
               file=sys.stderr)

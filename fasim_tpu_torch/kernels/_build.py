@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-`nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a) into one shared
+`nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a), one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, `build/kernels/libfasim_cuda.so` beside
 the package, at first use; the library is loaded with ctypes.  A rebuild
 happens when the sources' hash changes.  Nothing here runs at import, so
@@ -26,8 +27,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 LIB_NAME = "libfasim_cuda.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +38,7 @@ SIGNATURES = {
     "fasim_scan_colmax": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _P, _P, _P, _P],
     "fasim_scan_strip_rows": [],
+    "fasim_scan_codes_colmax": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "fasim_window_fwd": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
     "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                              _P],
@@ -77,14 +80,27 @@ def build() -> Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           + res.stderr[-4000:])
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    cus = [s for s in sources if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(cus, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    link = None
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+    (BUILD_DIR / "build.log").write_text("".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs)[-4000:])
     os.replace(tmp, lib)  # atomic against a concurrent build
     stamp.write_text(digest)
     return lib

@@ -1,18 +1,23 @@
 """TorchScanEngine: the port's scan engine.
 
 Counterpart of fasim_tpu/kernels/tpu.py:TpuScanEngine and
-kernels/xla.py:XlaScanEngine, with the same methods, so the reused host
-candidate stage (fasim_tpu/scan/candidates.py) drives it unchanged.  The
-engine owns its tables (the state `state()` / `load_state()` carry):
+kernels/xla.py:XlaScanEngine, with the same methods: the batched driver
+and the candidate stage (scan/candidates.py) call `scan_segments*` and
+`window_pass*`, the per-segment pipeline (scan/pipeline.py) calls the
+engine itself with the `numpy_engine` contract (`__call__`, built on
+`colmax_batch` / `max_batch`).  The engine owns its tables (the state
+`state()` / `load_state()` carry):
 
   * lut_s / lut_t uint8[T, 256], is_tr bool[T]: composed rule-transform
-    o encoder LUTs (window gather);
+    o encoder LUTs (window gather, v1 scan code rows);
   * lut6_s / lut6_t / istr int32[T, 128]: the same per base class (K1);
   * qp2_ssw / qp2_thresh int32[5, mp2]: the scan query rows (K1);
-  * qwin_fwd / qwin_rev int32[3, mp]: the window query rows (K3, K4).
+  * qprops_ssw / qprops_thresh int32[4, mp]: the v1 scan query rows (K5);
+  * qwin_fwd / qwin_rev int32[3, mpw]: the window query rows (K3, K4).
 
-On a CUDA device every device pass is a hand-written kernel; on the CPU
-the wrappers take the kernels' plain PyTorch versions.
+The engine runs on cuda:0 unless constructed with device="cpu".  On a
+CUDA device every device pass is a hand-written kernel; on the CPU the
+wrappers take the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -20,12 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fasim_tpu import rules
-from fasim_tpu.rules import SSW_ENC, THRESH_ENC
+from .. import rules
+from ..rules import SSW_ENC, THRESH_ENC
 
 from .pack import pack_candidates
 from .scan import (N_BASE, PURE, PURE_OR_PAD, decode_bases, make_lut6,
-                   make_qp2, scan_colmax)
+                   make_qp2, reverse_prefix, scan_colmax)
+from .scan_codes import apply_byte_break, make_qprops, scan_codes_colmax
 from .window import (WIDTHS, both_strands, gather_window_codes,
                      width_class, window_fwd, window_general, window_qp)
 
@@ -37,6 +43,7 @@ STATE_DTYPES = {
     "lut_s": np.uint8, "lut_t": np.uint8, "is_tr": np.bool_,
     "lut6_s": np.int32, "lut6_t": np.int32, "istr": np.int32,
     "qp2_ssw": np.int32, "qp2_thresh": np.int32,
+    "qprops_ssw": np.int32, "qprops_thresh": np.int32,
     "qwin_fwd": np.int32, "qwin_rev": np.int32,
 }
 
@@ -46,25 +53,32 @@ def _round_up(x: int, m: int) -> int:
 
 
 class TorchScanEngine:
-    """Scan engine on one torch device ("cuda:0", or "cpu" for the
-    plain versions)."""
+    """Scan engine on one torch device: "cuda:0" (the default), or "cpu"
+    for the plain versions.  `use_v2=False` makes `scan_segments` build
+    the code rows on the device and run K5, as fasim_tpu's
+    `TpuScanEngine(use_v2=False)` runs its v1 kernel."""
 
     PACK_K = 384  # > p99 of measured candidate-column counts (270)
     # no per-shape compiles: partial batches are trimmed, not padded
     dynamic_batch = True
 
-    def __init__(self, rna: np.ndarray, device: str | torch.device = "cpu"):
+    def __init__(self, rna: np.ndarray,
+                 device: str | torch.device = "cuda:0", use_v2: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"TorchScanEngine: {self.device} requested "
-                               "but torch.cuda.is_available() is false")
+                               "but torch.cuda.is_available() is false; "
+                               "pass device='cpu' for the plain versions")
+        self.use_v2 = use_v2
         self.m = len(rna)
         self.m16 = _round_up(self.m, 16)
         self.query_pure = bool(PURE[rna].all())
         self._host: dict[str, np.ndarray] = {}
         self._dev: dict[str, torch.Tensor] = {}
         self._set({"qp2_ssw": make_qp2(rna, SSW_ENC, "ssw"),
-                   "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh")})
+                   "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh"),
+                   "qprops_ssw": make_qprops(rna, "ssw"),
+                   "qprops_thresh": make_qprops(rna, "thresh")})
 
     # -- state ---------------------------------------------------------------
 
@@ -81,11 +95,13 @@ class TorchScanEngine:
     def load_state(self, tables: dict[str, np.ndarray]) -> None:
         """Replace tables with ones built elsewhere, e.g. a JAX engine's
         (`XlaScanEngine._scan_luts`, `np.asarray` of a `TpuScanEngine`'s
-        `_scan_luts6`, `qp2_*`, or `_window_qp` rows)."""
+        `_scan_luts6`, `qp2_*`, `qprops_*`, or `_window_qp` rows)."""
         mp2 = _round_up(self.m16 + 64, 128)
-        mp = _round_up(self.m + 63, 128)
+        mp = _round_up(self.m16, 128)
+        mpw = _round_up(self.m + 63, 128)
         want = {"qp2_ssw": (5, mp2), "qp2_thresh": (5, mp2),
-                "qwin_fwd": (3, mp), "qwin_rev": (3, mp)}
+                "qprops_ssw": (4, mp), "qprops_thresh": (4, mp),
+                "qwin_fwd": (3, mpw), "qwin_rev": (3, mpw)}
         T = None
         for key, arr in tables.items():
             if key not in STATE_DTYPES:
@@ -152,12 +168,17 @@ class TorchScanEngine:
         test).  Returns tensors on the engine's device: (thresh int32[S, T],
         colmax uint8[S, T, N] clamped at 255).  The kernel's gap is exact
         at any length, so `full_prefix` (fasim_tpu's escalation rerun)
-        gives the same thresholds; it is accepted for that control flow."""
+        gives the same thresholds; it is accepted for that control flow.
+        K1 over the raw segments, or with use_v2=False K5 over code rows
+        built on the device."""
         del full_prefix
         fused = self.query_pure and self._segs_pure(
             host_segs if host_segs is not None else segs)
-        bases, bases_rev = decode_bases(self._to_dev(segs, torch.uint8),
-                                        self._to_dev(lengths, torch.int32))
+        segs_t = self._to_dev(segs, torch.uint8)
+        lens_t = self._to_dev(lengths, torch.int32)
+        if not self.use_v2:
+            return self._scan_segments_v1(segs_t, lens_t, fused)
+        bases, bases_rev = decode_bases(segs_t, lens_t)
         d = self._dev
         cm, gm = scan_colmax(bases, bases_rev, d["lut6_s"], d["istr"],
                              d["qp2_ssw"], self.m16, thresh_alphabet=False)
@@ -168,6 +189,32 @@ class TorchScanEngine:
                                 d["qp2_thresh"], self.m16,
                                 thresh_alphabet=True, want_cm=False)
         return gm, cm
+
+    def _scan_segments_v1(self, segs: torch.Tensor, lengths: torch.Tensor,
+                          fused: bool):
+        """tpu.py:_device_scan: the (segment, transform) code rows built
+        with the lut_s / lut_t gathers (reversed transforms read the
+        reversed segment, pad bytes stay in place and map to N), then K5;
+        the threshold is the ssw pass's maximum when fused, else a
+        threshold-alphabet pass's."""
+        d = self._dev
+        S, N = segs.shape
+        T = d["lut_s"].shape[0]
+        rev = d["is_tr"][None, :, None]
+        sel = torch.where(rev, reverse_prefix(segs, lengths)[:, None, :],
+                          segs[:, None, :]).long()
+
+        def codes(lut):
+            return torch.gather(lut[None].expand(S, T, 256), 2, sel)
+
+        cm = scan_codes_colmax(codes(d["lut_s"]), d["qprops_ssw"], self.m16,
+                               "ssw")
+        if fused:
+            thresh = cm.amax(-1)
+        else:
+            thresh = scan_codes_colmax(codes(d["lut_t"]), d["qprops_thresh"],
+                                       self.m16, "thresh").amax(-1)
+        return thresh, cm.clamp(max=255).to(torch.uint8)
 
     def scan_segments_packed(self, segs: np.ndarray, lengths: np.ndarray):
         """scan_segments + device-side candidate packing: (thresh, cm, pos,
@@ -181,6 +228,35 @@ class TorchScanEngine:
         pos, val, cnt = pack_candidates(
             thresh, cm, self._to_dev(lengths, torch.int32), self.PACK_K)
         return thresh, cm, pos, val, cnt, segs_d
+
+    # -- the numpy_engine contract (per-segment pipeline) --------------------
+
+    def _colmax_dev(self, codes, which: str) -> torch.Tensor:
+        if which not in ("ssw", "thresh"):
+            raise ValueError(f"unknown alphabet {which!r} (ssw|thresh)")
+        return scan_codes_colmax(self._to_dev(codes, torch.uint8),
+                                 self._dev[f"qprops_{which}"], self.m16,
+                                 which)
+
+    def colmax_batch(self, codes, which: str) -> np.ndarray:
+        """Engine codes int[S, T, N] of alphabet `which` (ssw | thresh; a
+        ragged batch pads with an out-of-alphabet code) -> exact column
+        maxima int32[S, T, N] on the host, through K5."""
+        return self._colmax_dev(codes, which).cpu().numpy()
+
+    def max_batch(self, codes, which: str) -> np.ndarray:
+        """Engine codes int[S, T, N] -> exact global SW max int32[S, T]
+        (the column maxima are exact everywhere: no escalation rerun)."""
+        return self._colmax_dev(codes, which).amax(-1).cpu().numpy()
+
+    def __call__(self, rna: np.ndarray, seq2_list: list[np.ndarray]
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        """numpy_engine contract for one segment's transformed strings:
+        (thresh int32[T], byte-broken scan colmax int32[T, N])."""
+        seq2 = np.stack(seq2_list)
+        thresh = self.max_batch(THRESH_ENC[seq2][None], "thresh")[0]
+        scan_cm = self.colmax_batch(SSW_ENC[seq2][None], "ssw")[0]
+        return thresh.astype(np.int32), apply_byte_break(scan_cm)
 
     # -- candidate-window passes --------------------------------------------
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fasim_tpu.config import BYTE_SAT
+from ..config import BYTE_SAT
 
 
 def pack_candidates(thresh: torch.Tensor, cm_u8: torch.Tensor,

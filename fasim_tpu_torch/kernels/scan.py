@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fasim_tpu.config import GAP_EXTEND, GAP_OPEN
+from ..config import GAP_EXTEND, GAP_OPEN
 
 from . import _build
 
@@ -85,18 +85,25 @@ def make_qp2(rna: np.ndarray, enc: np.ndarray, alphabet: str) -> np.ndarray:
     return qp
 
 
+def reverse_prefix(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """x[S, N] with each row's first lengths[s] entries reversed and the
+    pad kept in place (the reversed-transform source, tpu.py
+    _device_scan)."""
+    N = x.shape[1]
+    pos = torch.arange(N, device=x.device)
+    lens = lengths.long()[:, None]
+    ridx = torch.where(pos[None, :] < lens, lens - 1 - pos[None, :],
+                       pos[None, :])
+    return torch.gather(x, 1, ridx)
+
+
 def decode_bases(segs: torch.Tensor, lengths: torch.Tensor):
     """Raw segment bytes uint8[S, N] -> base classes (bases, bases_rev),
     both uint8[S, N]; bases_rev reverses each segment's first lengths[s]
     bytes and keeps the pad in place (tpu.py _device_scan2)."""
     lut = torch.as_tensor(BASE6, device=segs.device)
     bases = lut[segs.long()]
-    N = segs.shape[1]
-    pos = torch.arange(N, device=segs.device)
-    lens = lengths.long()[:, None]
-    ridx = torch.where(pos[None, :] < lens, lens - 1 - pos[None, :],
-                       pos[None, :])
-    return bases, torch.gather(bases, 1, ridx)
+    return bases, reverse_prefix(bases, lengths)
 
 
 def scan_colmax_ref(bases: torch.Tensor, bases_rev: torch.Tensor,

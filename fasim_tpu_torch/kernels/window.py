@@ -19,10 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fasim_tpu.config import GAP_EXTEND, GAP_OPEN
-from fasim_tpu.rules import SSW_ENC
+from ..config import GAP_EXTEND, GAP_OPEN
+from ..rules import SSW_ENC
 
 from . import _build
+from .scan import reverse_prefix
 
 _NEG = -(2 ** 30)
 _BIG = 1 << 30
@@ -63,12 +64,7 @@ def window_qp(rna: np.ndarray) -> np.ndarray:
 def both_strands(segs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Flat uint8[2 * S * N]: the segments, then each segment with its
     first lengths[s] bytes reversed (the reversed-transform source)."""
-    N = segs.shape[1]
-    pos = torch.arange(N, device=segs.device)
-    lens = lengths.long()[:, None]
-    ridx = torch.where(pos[None, :] < lens, lens - 1 - pos[None, :],
-                       pos[None, :])
-    return torch.cat([segs, torch.gather(segs, 1, ridx)]).reshape(-1)
+    return torch.cat([segs, reverse_prefix(segs, lengths)]).reshape(-1)
 
 
 def gather_window_codes(both: torch.Tensor, S: int, N: int,

@@ -1,18 +1,21 @@
 """Batched scan of the port.
 
 Counterpart of fasim_tpu/scan/batched.py (iter_scan_work, scan_work,
-scan_records, scan_file_batched) for a `TorchScanEngine`.  The host
-helpers are that module's own (`_Work`, `enumerate_work`, `_ScanMeta`,
-`finalize_records`; it imports no jax), and the candidate stage is
-fasim_tpu/scan/candidates.py unchanged, so the output is byte-identical
-to the JAX package's.  Differences from fasim_tpu.scan.batched:
+scan_records, scan_file_batched) for a `TorchScanEngine`, with copies of
+that module's host helpers (`_Work`, `enumerate_work`, `_ScanMeta`, the
+`-F` branch of `_host_segment_stage`, `_sim_pool`, `corenum_buckets`,
+`filter_fix_record`, `finalize_record_into`, `finalize_records`).  The
+fastSIM candidate stage is the port's scan/candidates.py, so the output
+is byte-identical to the JAX package's.  Differences from
+fasim_tpu.scan.batched:
 
   * no prewarm: CUDA kernels are not compiled per shape;
   * the packed candidates come back with one `.cpu()` of the pos / val
     slices after the counts, instead of `jax.device_get`;
-  * only the fastSIM path (the candidate-window passes): `-F` and the
-    streaming scan are not ported yet;
-  * the default CUDA stream only.
+  * `-F` (exact SIM) fetches only the thresholds and runs the native SIM
+    per segment on the host; the device variant of its forward scan
+    (FASIM_SIM_DEVICE) and the streaming scan are not ported;
+  * the default CUDA stream of one device.
 
 Batches are dispatched up to `max_inflight` ahead; one stage thread per
 in-flight batch waits for its device results and runs the candidate
@@ -24,19 +27,166 @@ counts.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from fasim_tpu import rules
-from fasim_tpu.config import BYTE_SAT, Params
-from fasim_tpu.io import fasta
-from fasim_tpu.profiling import STAGES
-from fasim_tpu.scan.batched import (_ScanMeta, _Work, enumerate_work,
-                                    finalize_records)
-from fasim_tpu.scan.candidates import candidate_stage_batch
+from .. import rules
+from ..config import BYTE_SAT, Params
+from ..io import fasta
+from ..profiling import STAGES
+from .candidates import candidate_stage_batch
+from .pipeline import Triplex, _sim
+
+# glibc: cap the malloc arenas before any worker thread exists, as
+# fasim_tpu/scan/batched.py does at import — freed short-lived host
+# mirrors (colmax rows, packed candidates) otherwise keep RSS growing
+try:
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").mallopt(-8, 4)  # M_ARENA_MAX
+except OSError:
+    pass
+
+_SIM_POOL = None
+
+
+def _sim_pool() -> ThreadPoolExecutor:
+    """Shared executor for the exact-SIM (-F) pair fan-out; the native
+    scan releases the GIL, so pairs run truly concurrently.  Module
+    level (not per segment) so total concurrency stays bounded at the
+    core count even when several segments are in flight."""
+    global _SIM_POOL
+    if _SIM_POOL is None:
+        _SIM_POOL = ThreadPoolExecutor(
+            max_workers=max(1, os.cpu_count() or 1),
+            thread_name_prefix="fasim-sim")
+    return _SIM_POOL
+
+
+@dataclasses.dataclass
+class _Work:
+    """One (record, segment) pair queued for the device scan."""
+
+    record_idx: int
+    start: int  # dnaStartPos of the segment within the record
+    segment: np.ndarray
+
+
+def enumerate_work(p: Params, records) -> tuple[list[_Work], list[dict]]:
+    scans = rules.scan_list(p.rule, p.strand)
+    work: list[_Work] = []
+    for ri, rec in enumerate(records):
+        segs, starts = fasta.cut_sequence(rec.seq, p.cut_length,
+                                          p.overlap_length)
+        for seg, start in zip(segs, starts):
+            if fasta.same_seq(seg):
+                continue
+            work.append(_Work(ri, start, seg))
+    return work, scans
+
+
+_SRC_KINDS = ("fwd", "revcomp", "comp", "rev")
+
+
+class _ScanMeta:
+    """Per-run scan metadata arrays for the candidate stage."""
+
+    def __init__(self, scans: list[dict]):
+        t = len(scans)
+        self.scans = scans
+        self.luts = np.empty((t, 256), np.uint8)
+        self.xform_rev = np.empty(t, np.int8)
+        self.src_sel = np.empty(t, np.int8)
+        self.strands = np.empty(t, np.int32)
+        self.paras = np.empty(t, np.int32)
+        for k, s in enumerate(scans):
+            self.luts[k] = rules.transfer_lut(s["strand"], s["para"],
+                                              s["rule"])
+            self.xform_rev[k] = s["xform"] == "tr"
+            self.src_sel[k] = _SRC_KINDS.index(s["src"])
+            self.strands[k] = s["strand"]
+            self.paras[k] = s["para"]
+        self.ssw_enc_u8 = rules.SSW_ENC.astype(np.uint8)
+        self.mat = np.ascontiguousarray(rules.SSW_MAT, np.int32)
+
+
+def _host_segment_stage(p: Params, rna: np.ndarray, meta: _ScanMeta,
+                        w: _Work, gm_row: np.ndarray) -> list[Triplex]:
+    """Exact SIM (-F) for one segment, all transforms, in the reference's
+    transform order; only the thresholds gm_row are read.  Runs on a
+    worker thread.  (fasim_tpu's `_host_segment_stage` also serves the
+    fastSIM path of engines without window passes; every engine of the
+    port has them, so its fastSIM path is candidates.py.)"""
+    with STAGES.timer("host_candidate_busy"):
+        scans = meta.scans
+        pairs = [rules.make_scan_strings(w.segment, s) for s in scans]
+
+        # the 48 (segment, transform) pairs are fully independent (each
+        # owns its node list / used-cell state, sim.h:410-1143); run
+        # them across cores and concatenate in scan order — the
+        # reference's iteration order, so output is bit-identical.
+        # The reference runs this loop on one core (SURVEY §2.b).
+        def one(k):
+            scan = scans[k]
+            min_score = int(int(gm_row[k]) * 0.8)
+            part: list[Triplex] = []
+            _sim(rna, pairs[k][0], pairs[k][1], w.start, min_score,
+                 scan["strand"], scan["para"], scan["rule"], p, part)
+            return part
+
+        found: list[Triplex] = []
+        for part in _sim_pool().map(one, range(len(scans))):
+            found.extend(part)
+        return found
+
+
+def corenum_buckets(n: int) -> list[list[Triplex]]:
+    """Bucket list emulating the reference's `-C corenum` round-robin:
+    record i's triplexes append to bucket i % corenum, and the final
+    list is the buckets concatenated in bucket order (Fasim-LongTarget.
+    cpp:129-163 — no threads are ever spawned, but the permutation
+    changes TFOsorted row order within sort-tie classes because the
+    class sort is non-stable on pre-sort order, :813,:847-850)."""
+    return [[] for _ in range(max(1, n))]
+
+
+def filter_fix_record(p: Params, rec, lst: list[Triplex]) -> list[Triplex]:
+    """Final per-record filter (Fasim-LongTarget.cpp:589-597) +
+    genome-coordinate fixup (main:141-149) for one record's hits; rec
+    needs only .chro_tag / .start_genome."""
+    f32 = np.float32
+    lst = [t for t in lst
+           if (t.score >= f32(p.score_min)
+               and t.identity >= f32(p.min_identity)
+               and t.tri_score >= f32(p.min_stability)
+               and t.nt >= p.c_length)]
+    for t in lst:
+        if t.genomestart == 0:
+            t.chr = rec.chro_tag
+            t.genomestart = t.starj + rec.start_genome - 1
+            t.genomeend = t.endj + rec.start_genome - 1
+    return lst
+
+
+def finalize_record_into(buckets: list[list[Triplex]], p: Params, ri: int,
+                         rec, lst: list[Triplex]) -> None:
+    """filter_fix_record + `-C` bucket append, shared by every driver
+    (their outputs must stay bit-identical)."""
+    buckets[ri % len(buckets)].extend(filter_fix_record(p, rec, lst))
+
+
+def finalize_records(p: Params, records, per_record: list[list[Triplex]]
+                     ) -> list[Triplex]:
+    """Final filter then genome-coordinate fixup, concatenated in record
+    order — through the `-C` bucket permutation when corenum >= 2."""
+    buckets = corenum_buckets(p.corenum)
+    for i, (rec, lst) in enumerate(zip(records, per_record)):
+        finalize_record_into(buckets, p, i, rec, lst)
+    return [t for b in buckets for t in b]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -46,8 +196,17 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def _process_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
                    rna_b: bytes, meta: _ScanMeta, batch: list[_Work],
                    segs: np.ndarray, lengths: np.ndarray, eng, out, pool):
-    """Wait for one batch's scan results and run its candidate stage;
-    returns (work item, future -> hits) pairs in batch order."""
+    """Wait for one batch's scan results and run its candidate stage (or,
+    with -F, the exact SIM per segment); returns (work item, future ->
+    hits) pairs in batch order."""
+    if not p.do_fast_sim:
+        # the SIM reads only the thresholds: no colmax row is fetched.
+        # The kernels are exact at any length, so a threshold >= BYTE_SAT
+        # needs no rerun here
+        with STAGES.timer("device_wait"):
+            gm = _host(out[0])
+        return [(w, pool.submit(_host_segment_stage, p, rna, meta, w, gm[i]))
+                for i, w in enumerate(batch)]
     thresh_dev, cm_dev = out[0], out[1]
     # the window passes reuse the batch's uploaded segment bytes
     segs_win = out[5] if len(out) > 5 else segs
@@ -105,11 +264,9 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
     """Streaming scan core: consume a work iterator, keep at most
     `max_inflight` device batches in flight, yield (work item, hits) in
     input order.  `engine` is one TorchScanEngine."""
-    if not p.do_fast_sim:
-        raise NotImplementedError("-F (exact SIM) is not ported to the "
-                                  "torch port yet")
     engine.setup_scans(scans)
-    engine.setup_windows(rna)
+    if p.do_fast_sim:
+        engine.setup_windows(rna)
     if host_threads <= 0:
         host_threads = min(32, os.cpu_count() or 1)
     max_inflight = max(max_inflight, 2)
@@ -140,7 +297,10 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
                 segs[i, :len(w.segment)] = w.segment
                 lengths[i] = len(w.segment)
             with STAGES.timer("device_dispatch"):
-                out = engine.scan_segments_packed(segs, lengths)
+                if p.do_fast_sim:
+                    out = engine.scan_segments_packed(segs, lengths)
+                else:
+                    out = engine.scan_segments(segs, lengths)
             inflight.append(stages.submit(
                 _process_batch, p, rna, q_idx, rna_b, meta, batch, segs,
                 lengths, engine, out, pool))

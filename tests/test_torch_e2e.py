@@ -65,9 +65,10 @@ import sys
 import numpy as np
 import fasim_tpu_torch.cli
 import fasim_tpu_torch.scan.batched
-from fasim_tpu import rules
+from fasim_tpu_torch import rules
 from fasim_tpu_torch.kernels import _build, engine, pack, scan, window
-eng = engine.TorchScanEngine(np.frombuffer(b"ACGTACGGTA", np.uint8).copy())
+eng = engine.TorchScanEngine(np.frombuffer(b"ACGTACGGTA", np.uint8).copy(),
+                             device="cpu")
 eng.setup_scans(rules.scan_list(0, 0))
 eng.setup_windows(np.frombuffer(b"ACGTACGGTA", np.uint8).copy())
 segs = np.frombuffer(b"TTACGTACGGTAGG" * 4, np.uint8).reshape(1, -1).copy()
@@ -90,8 +91,8 @@ def test_cuda_engine_raises_without_device(engine, monkeypatch):
     """`cuda` (and `auto`) never pick the CPU silently."""
     import torch
 
-    from fasim_tpu.config import TpuConfig
     from fasim_tpu_torch import cli
+    from fasim_tpu_torch.config import TpuConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -99,9 +100,23 @@ def test_cuda_engine_raises_without_device(engine, monkeypatch):
                         np.frombuffer(b"ACGT", np.uint8).copy())
 
 
+def test_engine_defaults_to_cuda(monkeypatch):
+    """TorchScanEngine(rna) means cuda:0: without a device it raises, and
+    the CPU is taken only when asked for."""
+    import torch
+
+    from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+    rna = np.frombuffer(b"ACGT", np.uint8).copy()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        TorchScanEngine(rna)
+    assert TorchScanEngine(rna, device="cpu").device.type == "cpu"
+
+
 def test_torch_engine_is_cpu():
-    from fasim_tpu.config import TpuConfig
     from fasim_tpu_torch import cli
+    from fasim_tpu_torch.config import TpuConfig
 
     eng = cli.make_engine(TpuConfig(engine="torch"),
                           np.frombuffer(b"ACGT", np.uint8).copy())

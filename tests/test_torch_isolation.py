@@ -1,0 +1,86 @@
+"""The port stands alone: with `jax` and the JAX package `fasim_tpu`
+blocked at import, every module of `fasim_tpu_torch` and `chip_smoke`
+imports, and a scan, a window pass, the numpy_engine call, the
+per-segment pipeline and a `-F` scan run on the CPU."""
+
+import os
+import subprocess
+import sys
+
+from conftest import ORACLE
+
+REPO = os.path.dirname(ORACLE)
+
+_ISOLATED = r"""
+import importlib
+import importlib.abc
+import pkgutil
+import sys
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "fasim_tpu"):
+            raise ModuleNotFoundError(f"blocked: {name}", name=name)
+        return None
+
+
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+
+import fasim_tpu_torch
+
+mods = [m.name for m in pkgutil.walk_packages(fasim_tpu_torch.__path__,
+                                              "fasim_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (its main() is not run)
+
+from fasim_tpu_torch import rules
+from fasim_tpu_torch.config import Params
+from fasim_tpu_torch.kernels.engine import TorchScanEngine
+from fasim_tpu_torch.scan import batched, pipeline
+
+rng = np.random.default_rng(3)
+dna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 300)].copy()
+# one strong hit: the query pairs with dna[100:160] under scan 0's rule
+# (no T run in the source, which the stability score penalizes)
+dna[100:160] = np.frombuffer(b"ACG", np.uint8)[rng.integers(0, 3, 60)]
+scans = rules.scan_list(0, 0)[:4]
+sc = scans[0]
+rna = rules.transfer_lut(sc["strand"], sc["para"], sc["rule"])[dna[100:160]]
+eng = TorchScanEngine(rna, device="cpu")
+eng.setup_scans(scans)
+eng.setup_windows(rna)
+segs = dna[None, :256].copy()
+out = eng.scan_segments_packed(segs, np.array([256], np.int32))
+assert int(out[0].max()) > 0
+ends = eng.window_pass(np.zeros((2, 64), np.uint8), np.zeros(2, np.int32),
+                       np.full(2, -1, np.int32), np.full(2, 60, np.int32),
+                       np.full(2, 48, np.int32), rev=False)
+assert ends.shape == (2, 3)
+seq2 = [rules.make_scan_strings(dna, s)[0] for s in scans]
+thresh, colmax = eng(rna, seq2)
+assert thresh.shape == (4,) and colmax.shape == (4, 300)
+hits = pipeline.long_target(Params(), rna, dna, engine=eng)
+hits_f = pipeline.long_target(Params(do_fast_sim=False), rna, dna,
+                              engine=eng)
+work, _ = batched.enumerate_work(Params(do_fast_sim=False),
+                                 [type("R", (), {"seq": dna})()])
+batched.scan_work(Params(do_fast_sim=False), rna, work, scans, eng)
+assert hits and hits_f, (len(hits), len(hits_f))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "fasim_tpu"))
+assert not bad, bad
+print("ok", len(mods))
+"""
+
+
+def test_port_runs_with_jax_and_fasim_tpu_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.startswith("ok"), r.stdout

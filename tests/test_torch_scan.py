@@ -172,7 +172,8 @@ def test_pack_candidates_vs_jax_mirror(k):
 def test_wide_segments_skip_packing():
     """Positions are int16: a batch wider than 32767 columns returns only
     (thresh, cm), like the JAX engine."""
-    port = TorchScanEngine(np.frombuffer(b"ACGT", np.uint8).copy())
+    port = TorchScanEngine(np.frombuffer(b"ACGT", np.uint8).copy(),
+                           device="cpu")
     port.setup_scans(rules.scan_list(0, 0)[:1])
     batch = np.zeros((1, 32768 + 128), np.uint8)
     batch[0, :4] = np.frombuffer(b"ACGT", np.uint8)

@@ -41,12 +41,14 @@ def _jax_tables(rna, scans) -> dict:
             "lut6_s": lut6_s, "lut6_t": lut6_t, "istr": istr,
             "qp2_ssw": np.asarray(tpu.qp2_ssw),
             "qp2_thresh": np.asarray(tpu.qp2_thresh),
+            "qprops_ssw": np.asarray(tpu.qprops_ssw),
+            "qprops_thresh": np.asarray(tpu.qprops_thresh),
             "qwin_fwd": np.asarray(xla.qwin_fwd),
             "qwin_rev": np.asarray(xla.qwin_rev)}
 
 
 def _port(rna, scans) -> TorchScanEngine:
-    eng = TorchScanEngine(rna)
+    eng = TorchScanEngine(rna, device="cpu")
     eng.setup_scans(scans)
     eng.setup_windows(rna)
     return eng
@@ -68,7 +70,7 @@ def test_load_state_round_trip():
     rna = _rna(5, 90)
     scans = rules.scan_list(0, 0)[:20]
     a = _port(rna, scans)
-    b = TorchScanEngine(rna)
+    b = TorchScanEngine(rna, device="cpu")
     b.load_state(a.state())
     for key, arr in a.state().items():
         np.testing.assert_array_equal(b.state()[key], arr, err_msg=key)
@@ -90,7 +92,7 @@ def test_engine_on_jax_state_equals_xla():
     xla = XlaScanEngine(rna)
     xla.setup_scans(scans)
     xla.setup_windows(rna)
-    port = TorchScanEngine(rna)
+    port = TorchScanEngine(rna, device="cpu")
     port.load_state(_jax_tables(rna, scans))
     segs = np.zeros((2, 384), np.uint8)
     lens = np.array([384, 211], np.int32)

@@ -37,7 +37,7 @@ def _rna(rng, m):
 
 def _engines(rna, scans=None):
     xla = XlaScanEngine(rna)
-    port = TorchScanEngine(rna)
+    port = TorchScanEngine(rna, device="cpu")
     for eng in (xla, port):
         if scans is not None:
             eng.setup_scans(scans)
@@ -250,7 +250,7 @@ def test_routing_uniform_forward_to_k3(monkeypatch):
 def test_align_chain_matches_align_window_py():
     """Device fwd + device rev + host banded on the port engine == the
     golden single-window alignment."""
-    from fasim_tpu.scan.candidates import align_via_window_pass
+    from fasim_tpu_torch.scan.candidates import align_via_window_pass
 
     rng = np.random.default_rng(151)
     m = 151
