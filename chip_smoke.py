@@ -23,16 +23,18 @@ Phases, each printing one line with its seconds:
   4. e2e     — in this process, every output file and stdout (except
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
-     and the kernels of its path launched: h19_lg40, h19F_trunc and
-     h19_F (both -F) through the port's CLI, h19_lg40 through the
-     batched driver with TorchScanEngine(use_v2=False) (K5), meg3_sub16
-     through the per-segment path scan/pipeline.scan_file (K5), and
+     and the kernels of its path launched: h19_lg40, h19_default,
+     h19F_trunc and h19_F (both -F) through the port's CLI, h19_lg40
+     through the batched driver with TorchScanEngine(use_v2=False) (K5),
+     meg3_sub16 through the per-segment path scan/pipeline.scan_file
+     (K5), and
      meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records) through the CLI (K1,
      K3, K4);
   5. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs), and each kernel's bound: the
-     larger of its integer operations over the card's int32 rate (SMs x
-     64 lanes x the max SM clock) and its bytes over 3.35 TB/s.
+     larger of the least integer operations its cells need
+     (ops_per_cell) over the card's int32 rate (SMs x 64 lanes x the max
+     SM clock) and its bytes over 3.35 TB/s.
 
 Then one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
@@ -59,12 +61,22 @@ MEG3_M = 1582  # the MEG3 lncRNA of oracle/MEG3.fa
 NEAT1_M = 22767  # the NEAT1 lncRNA of oracle/NEAT1.fa
 MEM_BPS = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA's data sheet)
 INT32_LANES = 64  # INT32 units per SM (Hopper)
-# integer operations per DP cell, counted from the kernels' inner loops
-# (K1 / K5 in the ssw alphabet: compare + select for the score, three
-# max-with-add chains, the column max; K3 / K4 add the per-column row
-# statistics, K4 also the zero-profile prefix select)
-OPS_PER_CELL = {"scan_colmax": 13, "window_fwd": 18, "window_general": 19,
-                "scan_codes_colmax": 13}
+
+
+def ops_per_cell(kernel: str, m16: int) -> float:
+    """The least integer operations one DP cell needs on sm_90, each
+    counted at the INT32 rate (fewer than the kernels execute).
+
+    The recurrence takes 7: the score 1 (one PRMT of a per-row byte table
+    by the column's code gives the sign-extended score in either
+    alphabet), H - 16 once for both gaps 1, E and F one __viaddmax each,
+    H 2 (__viaddmax_relu of diag + s and E, then max with F), the column
+    max 1.  Scores lie in [-20, 5 * m16], so where that fits in 16 bits
+    the two-lane s16x2 forms do two cells per operation.  K3 / K4 add 2
+    for each column's (max, lowest row), one max over a 32-bit key
+    max * 2048 + (2047 - row)."""
+    ops = 7 / 2 if 5 * m16 <= 32767 else 7
+    return ops + (2 if kernel.startswith("window") else 0)
 
 
 class SmokeError(AssertionError):
@@ -561,6 +573,7 @@ class Smoke:
     GOLDENS = (
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli", K135,
          False),
+        ("h19_default", "testDNA.fa", "H19.fa", [], "cli", K135, False),
         ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
          ("scan_colmax",), False),
         ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli",
@@ -613,7 +626,7 @@ class Smoke:
         S, N = segs.shape
         T = d["lut6_s"].shape[0]
         self.work["scan_colmax"] = (
-            OPS_PER_CELL["scan_colmax"] * S * T * N * eng.m16,
+            ops_per_cell("scan_colmax", eng.m16) * S * T * N * eng.m16,
             2 * S * N + S * T * N + 4 * S * T + 4 * T * 7 + 16 * eng.m16)
         print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
               f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
@@ -654,7 +667,7 @@ class Smoke:
             cells = int((rl * (top - spec["offs"])).sum())
             rows = len(rl)
             code_bytes = sum(int(c.numel()) for _, c, _ in parts)
-            self.work[kernel] = (OPS_PER_CELL[kernel] * cells,
+            self.work[kernel] = (ops_per_cell(kernel, m16) * cells,
                                  code_bytes + rows * (16 if rev else 4)
                                  + rows * 12 + 12 * m)
             widths = {W: int(c.shape[0]) for W, c, _ in parts}
@@ -686,7 +699,7 @@ class Smoke:
         self.ms["scan_codes_colmax"] = shapes["ssw"]
         self.plain_ms["scan_codes_colmax"] = plain
         self.work["scan_codes_colmax"] = (
-            OPS_PER_CELL["scan_codes_colmax"] * rows * N * eng.m16,
+            ops_per_cell("scan_codes_colmax", eng.m16) * rows * N * eng.m16,
             rows * N + 4 * rows * N + 16 * eng.m16)
         print(f"  K5 scan_codes_colmax, per-segment shape S=1 T={rows} "
               f"N={N} m={len(rna)}: kernel ssw {shapes['ssw']:.3f} ms, "
@@ -698,11 +711,12 @@ class Smoke:
         args = (packed, eng._dev["qprops_ssw"], eng.m16, "ssw")
         ms = self.cuda_ms(lambda: scan_codes_colmax(*args), 3)
         cells = packed.numel() * eng.m16
+        bound_ms = self.bound(
+            ops_per_cell("scan_codes_colmax", eng.m16) * cells, 0)[0]
         print(f"  K5 scan_codes_colmax, packed batch S=64 T={rows} N=5120 "
               f"m={len(rna)}, ssw: kernel {ms:.3f} ms "
               f"({cells / ms / 1e6:.1f} G cell-updates/s; bound "
-              f"{self.bound(OPS_PER_CELL['scan_codes_colmax'] * cells, 0)[0]:.3f}"
-              f" ms)")
+              f"{bound_ms:.3f} ms)")
 
     def bound(self, ops: float, nbytes: float):
         """(least ms the card could take, the term that sets it)."""

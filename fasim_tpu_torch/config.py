@@ -54,14 +54,6 @@ class TpuConfig:
     engine: str = "auto"
     # Number of DNA segments processed per kernel launch (batch dim).
     segments_per_batch: int = 64
-    # Data-parallel mesh axis size; 0 = use all local devices.
-    dp_devices: int = 0
-    # Use the interpreter (CPU) path for Pallas kernels (tests/debug).
-    interpret: bool = False
-    # DP wavefront dtype for the device kernels ("int32" is exact).
-    dtype: str = "int32"
-    # Column-loop unroll factor of the Pallas scan kernel.
-    unroll: int = 1
     # Print the per-stage wall-clock split on stderr after the run.
     profile: bool = False
     # Max device batches in flight (bounds host+device memory at genome

@@ -3,10 +3,9 @@
 Copy of fasim_tpu/native for the port.  `g++` builds this package's own
 sources into `build/native/libfasim_torch_native.so` beside the package
 at first use (rebuilt when a source is newer), so a process can load this
-library and the JAX package's side by side.  The wrappers of
-`lt_fastsim_segment` and `lt_sim_replay` are left out: the port's drivers
-do not call them (its fastSIM path is scan/candidates.py; the device SIM
-replay is not ported)."""
+library and the JAX package's side by side.  The JAX package's
+`lt_fastsim_segment` and `lt_sim_replay` (the device SIM replay) are not
+copied: the port's drivers do not call them."""
 
 from __future__ import annotations
 

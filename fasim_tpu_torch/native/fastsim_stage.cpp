@@ -588,77 +588,6 @@ long lt_finalize_pair(const int32_t* q_idx, long M, const int32_t* r_idx,
     return nout;
 }
 
-// Full fastSIM candidate stage for one segment across all scans, in scan
-// order, minimizing per-pair Python overhead.  Per scan k:
-//   s2 = lut_k(seg) [reversed when xform_rev], r_idx = ssw_enc(s2),
-//   colmax = byte-break(cm_u8 row), min_score = trunc(thresh * 0.8).
-// src_sel picks the (precomputed) source string variant per scan.
-// ints layout per output row: stari endi starj endj nt scan_idx.
-// Returns output count or -1 on buffer overflow.
-long lt_fastsim_segment(
-    const int32_t* q_idx, long M, const char* rna, const char* seg, long N,
-    const char* const* srcs, const long* src_lens, const int8_t* src_sel,
-    long nscans, const uint8_t* luts /* nscans x 256 */,
-    const int8_t* xform_rev, const int32_t* strand_arr,
-    const int32_t* para_arr, const int8_t* ssw_enc /* 256 */,
-    const uint8_t* cm_u8 /* nscans rows */, long cm_stride,
-    const int32_t* thresh,
-    const int32_t* mat, long mat_dim, long go, long ge, long dna_start_pos,
-    long nt_min, long nt_max, long penalty_t, long penalty_c,
-    float min_identity, float min_stability, long cap, int32_t* ints,
-    float* floats, int64_t* stroffs, char* strbuf, long strbuf_cap) {
-    std::vector<char> s2(N);
-    std::vector<int32_t> r_idx(N);
-    std::vector<int32_t> cm(N);
-    std::vector<Cand> cands;
-    long nout = 0, soff = 0;
-    for (long k = 0; k < nscans; k++) {
-        const long min_score = (long)((double)thresh[k] * 0.8);
-        // byte break (sswNew.cpp:384-386): zero from the first column
-        // whose max reached saturation
-        const uint8_t* row = cm_u8 + (size_t)k * cm_stride;
-        bool any = false;
-        {
-            long stop = N;
-            for (long j = 0; j < N; j++)
-                if (row[j] >= 251) {
-                    stop = j;
-                    break;
-                }
-            for (long j = 0; j < stop; j++) {
-                cm[j] = row[j];
-                if (cm[j] > min_score) any = true;
-            }
-            for (long j = stop; j < N; j++) cm[j] = 0;
-        }
-        if (!any) continue;  // no candidate columns -> no peaks
-        const uint8_t* lut = luts + (size_t)k * 256;
-        if (xform_rev[k])
-            for (long j = 0; j < N; j++)
-                s2[j] = (char)lut[(unsigned char)seg[N - 1 - j]];
-        else
-            for (long j = 0; j < N; j++)
-                s2[j] = (char)lut[(unsigned char)seg[j]];
-        for (long j = 0; j < N; j++)
-            r_idx[j] = ssw_enc[(unsigned char)s2[j]];
-        const char* src = srcs[src_sel[k]];
-        if (src_lens[src_sel[k]] != N) return -2;  // complement-drop quirk
-        cands.clear();
-        if (!pair_candidates(q_idx, M, r_idx.data(), N, rna, s2.data(), src,
-                             cm.data(), mat, mat_dim, go, ge, dna_start_pos,
-                             min_score, strand_arr[k], para_arr[k], nt_min,
-                             nt_max, penalty_t, penalty_c, cands))
-            return -1;
-        nout = finish_pair(cands, k, nt_min, min_identity, min_stability,
-                           cap, ints, floats, stroffs, strbuf, strbuf_cap,
-                           nout, &soff);
-        if (nout < 0) return -1;
-    }
-    return nout;
-}
-
-
-
 // Full fastSIM candidate stage for one (segment, transform) pair.
 // ints layout per row: stari endi starj endj nt scan_idx(0).
 // Returns the emitted triplex count, or -1 on buffer overflow.

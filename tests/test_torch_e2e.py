@@ -114,6 +114,18 @@ def test_engine_defaults_to_cuda(monkeypatch):
     assert TorchScanEngine(rna, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("flag", ["--tpu-dtype", "--tpu-interpret",
+                                  "--tpu-unroll", "--tpu-dp-devices"])
+def test_tpu_kernel_flags_are_unknown(flag):
+    """The JAX package's knobs of its TPU kernels and mesh have no
+    counterpart in the port: its CLI rejects them instead of ignoring
+    them."""
+    from fasim_tpu_torch import cli
+
+    with pytest.raises(SystemExit, match="unknown flag"):
+        cli.parse_args(["-f1", "a.fa", flag, "1"])
+
+
 def test_torch_engine_is_cpu():
     from fasim_tpu_torch import cli
     from fasim_tpu_torch.config import TpuConfig
