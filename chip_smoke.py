@@ -12,26 +12,34 @@ Phases, each printing one line with its seconds:
   2. build   — compiles fasim_tpu_torch/csrc/*.cu with nvcc;
   3. kernels — every kernel against its plain PyTorch version on the card,
      exact integer equality, on inputs made with numpy default_rng: K1
-     scan_colmax (main-path batch, ragged, byte-saturating, impure with
-     a U query, a NEAT1-length query, a 50 kb segment), the candidate
-     packing against its numpy mirror, K3 window_fwd on every width
-     class, K4 window_general on the specs of a real candidate stage, K5
-     scan_codes_colmax (the per-segment shape in both alphabets, a packed
-     batch, impure codes with a U query, a GA-rich row past 251, a
-     NEAT1-length query) and the engine's per-segment call on the card
-     against the same call on a CPU engine;
+     scan_colmax and K7 scan_colmax16 (main-path batch, ragged,
+     byte-saturating GA-rich, impure with a U query, a NEAT1-length
+     query, a 50 kb segment; K7 against K1's plain version on the last),
+     the engine's K7/K1 routing under FASIM_SCAN16=1 (odd T, out of the
+     int16 gate, the full-prefix rerun), the candidate packing against
+     its numpy mirror, K3 window_fwd on every width class, K4
+     window_general on the specs of a real candidate stage, K6
+     window_keys on every width class (two 64-column windows per row
+     included) and on the same specs, K5 scan_codes_colmax (the
+     per-segment shape in both alphabets, a packed batch, impure codes
+     with a U query, a GA-rich row past 251, a NEAT1-length query) and
+     the engine's per-segment call on the card against the same call on
+     a CPU engine;
   4. e2e     — in this process, every output file and stdout (except
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
-     and the kernels of its path launched: h19_lg40, h19_default,
-     h19F_trunc and h19_F (both -F) through the port's CLI, h19_lg40
-     through the batched driver with TorchScanEngine(use_v2=False) (K5),
-     meg3_sub16 through the per-segment path scan/pipeline.scan_file
-     (K5), and
-     meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records) through the CLI (K1,
-     K3, K4);
+     the kernels of its path launched and the kernels its switches turn
+     off not launched: h19_lg40, h19_default, h19F_trunc and h19_F (both
+     -F) through the port's CLI, h19_lg40 under FASIM_WIN_V3=0 (K4 for
+     the forward specs, no K3), h19_lg40 through the batched driver with
+     TorchScanEngine(use_v2=False) (K5), meg3_sub16 through the
+     per-segment path scan/pipeline.scan_file (K5), and meg3_full (MEG3
+     lncRNA x 1.32 Mb, 532 records) through the CLI, by default (K1, K3,
+     K4) and under FASIM_SCAN16=1 FASIM_WIN_V1=1 (K7, K6; no K1, K3 or
+     K4);
   5. times   — each kernel and its plain version at main-path shapes
-     (CUDA events around synchronized runs), and each kernel's bound: the
+     (CUDA events around synchronized runs; K7 at K1's shape, K6 on K3's
+     forward and K4's reverse dispatch), and each kernel's bound: the
      larger of the least integer operations its cells need
      (ops_per_cell) over the card's int32 rate (SMs x 64 lanes x the max
      SM clock) and its bytes over 3.35 TB/s.
@@ -83,6 +91,22 @@ class SmokeError(AssertionError):
     """A phase's check failed."""
 
 
+@contextlib.contextmanager
+def switches(**env):
+    """Set environment switches (FASIM_SCAN16, ...) for a block and put the
+    previous values back after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeError(msg)
@@ -94,6 +118,10 @@ class Smoke:
     KERNELS = {
         "scan_colmax": ("fasim_tpu_torch/csrc/scan.cu",
                         "fasim_tpu/kernels/tpu.py:974"),
+        "scan_colmax16": ("fasim_tpu_torch/csrc/scan16.cu",
+                          "fasim_tpu/kernels/tpu.py:911"),
+        "window_keys": ("fasim_tpu_torch/csrc/window_v1.cu",
+                        "fasim_tpu/kernels/tpu.py:1364"),
         "window_fwd": ("fasim_tpu_torch/csrc/window.cu",
                        "fasim_tpu/kernels/tpu.py:1796"),
         "window_general": ("fasim_tpu_torch/csrc/window.cu",
@@ -212,11 +240,14 @@ class Smoke:
 
     # -- phase 3 ---------------------------------------------------------
 
-    def k1_case(self, name: str, rna, seqs, n_pad: int):
-        """K1 on both alphabets: kernel vs plain on the same device
-        inputs.  Returns the ssw pass (thresh, cm) and the batch."""
-        from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
-                                                  scan_colmax_ref)
+    def k1_case(self, name: str, rna, seqs, n_pad: int,
+                k7_plain: bool = True):
+        """K1 and K7 on both alphabets: kernel vs plain on the same device
+        inputs (K7 against K1's plain version when not k7_plain).
+        Returns K1's ssw pass (thresh, cm) and the batch."""
+        from fasim_tpu_torch.kernels.scan import (
+            decode_bases, in_gate16, scan_colmax, scan_colmax16,
+            scan_colmax16_ref, scan_colmax_ref)
 
         torch = self.torch
         eng = self.engine(rna)
@@ -225,6 +256,7 @@ class Smoke:
             torch.from_numpy(segs).to(self.dev),
             torch.from_numpy(lens).to(self.dev))
         d = eng._dev
+        require(in_gate16(48, eng.m16, n_pad), f"{name}: outside K7's gate")
         out = None
         for alpha, thresh in (("ssw", False), ("thresh", True)):
             args = (bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
@@ -233,11 +265,47 @@ class Smoke:
             cm_p, gm_p = scan_colmax_ref(*args)
             self.compare("scan_colmax", cm_k, cm_p, f"{name}/{alpha} colmax")
             self.compare("scan_colmax", gm_k, gm_p, f"{name}/{alpha} max")
+            cm_7, gm_7 = scan_colmax16(*args)
+            if k7_plain:
+                cm_p, gm_p = scan_colmax16_ref(*args)
+            self.compare("scan_colmax16", cm_7, cm_p,
+                         f"{name}/{alpha} colmax")
+            self.compare("scan_colmax16", gm_7, gm_p, f"{name}/{alpha} max")
             if not thresh:
                 out = (gm_k, cm_k)
-        print(f"  K1 {name}: S={len(seqs)} N={segs.shape[1]} m={len(rna)} "
-              f"T=48 max={int(out[0].max())} equal")
+        print(f"  K1, K7 {name}: S={len(seqs)} N={segs.shape[1]} "
+              f"m={len(rna)} T=48 max={int(out[0].max())} equal"
+              + ("" if k7_plain else " (K7 against K1's plain version)"))
         return out, segs, lens, eng
+
+    def k7_routing(self) -> None:
+        """Under FASIM_SCAN16=1 the engine launches K7 inside the gate and
+        K1 for an odd T, out of the gate (5 * min(m16, N) > 30000) and
+        for the fused full-prefix rerun."""
+        from fasim_tpu_torch import rules
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+        rna = self.dna(MEG3_M)
+        main = self.batch([self.dna(5000) for _ in range(8)], 5120)
+        neat1 = self.dna(NEAT1_M)
+        cases = (("inside the gate", rna, 48, main, False, "scan_colmax16"),
+                 ("T=47", rna, 47, main, False, "scan_colmax"),
+                 ("NEAT1 x N=6144", neat1, 48,
+                  self.batch([self.dna(6000)], 6144), False, "scan_colmax"),
+                 ("full-prefix rerun", rna, 48, main, True, "scan_colmax"))
+        with switches(FASIM_SCAN16="1"):
+            for name, q, n_scans, (segs, lens), full, want in cases:
+                eng = TorchScanEngine(q, device=self.dev)
+                eng.setup_scans(rules.scan_list(0, 0)[:n_scans])
+                self.reset_counts()
+                eng.scan_segments(segs, lens, full_prefix=full)
+                self.torch.cuda.synchronize()
+                counts = self.read_counts()
+                got = {k: counts[k] for k in ("scan_colmax",
+                                              "scan_colmax16")}
+                require(got[want] == 1 and sum(got.values()) == 1,
+                        f"K7 routing, {name}: launches {got}, want {want}")
+                print(f"  FASIM_SCAN16=1, {name}: {want} only")
 
     def phase_kernels(self) -> None:
         np = self.np
@@ -265,11 +333,13 @@ class Smoke:
         _, _, _, eng_u = self.k1_case("impure + U query", rna_u, impure,
                                       1920)
         require(not eng_u.query_pure, "U query must disable fused mode")
+        # 5 * min(22768, 5120) = 25,600: inside K7's gate, 45 strips
         self.k1_case("NEAT1-length query", self.dna(NEAT1_M),
-                     [self.dna(900) for _ in range(2)], 1024)
+                     [self.dna(5000) for _ in range(2)], 5120)
         # -c 50000: the segment codes outgrow 48 KB of shared memory
         self.k1_case("wide segment", self.dna(100), [self.dna(50000)],
-                     50048)
+                     50048, k7_plain=False)
+        self.k7_routing()
 
         # pack ---------------------------------------------------------
         lens_d = torch.from_numpy(lens).to(self.dev)
@@ -313,6 +383,10 @@ class Smoke:
             self.compare("window_fwd", got, want, f"rlens {lo}..{hi}")
             print(f"  K3 rlens {lo}..{hi} (W={W}): {rows} rows equal, "
                   f"best max {int(want[:, 0].max())}")
+            n = self.k6_compare(codes, full(0), full(eng.m16), eng, False,
+                                f"rlens {lo}..{hi}")
+            print(f"  K6 rlens {lo}..{hi} (W={W}): {n} kernel rows, keys "
+                  "equal")
 
         # K4 (and K3) on the specs of a real candidate stage ----------------
         self.capture = self.capture_specs()
@@ -334,9 +408,27 @@ class Smoke:
                             codes, qp, part["rlens"], self.cap_eng.m,
                             self.cap_eng.m16), want, f"fwd specs W={W}")
                     n += codes.shape[0]
-            print(f"  K4 {'reverse' if rev else 'forward'} specs of a "
-                  f"real candidate stage: {n} rows equal")
+                    self.k6_compare(codes, part["offs"], part["mreals"],
+                                    self.cap_eng, rev, f"specs W={W}")
+            print(f"  K4, K6 {'reverse' if rev else 'forward'} specs of a "
+                  f"real candidate stage: {n} rows equal (K6: keys)")
         self.k5_checks()
+
+    # -- K6 --------------------------------------------------------------
+
+    def k6_compare(self, codes, offs, mreals, eng, rev: bool,
+                   what: str) -> int:
+        """K6 keys vs its plain version on one width class; the number of
+        kernel rows."""
+        from fasim_tpu_torch.kernels.window_v1 import (v1_rows, window_keys,
+                                                       window_keys_ref)
+
+        rows, o, mr, subw = v1_rows(codes, offs, mreals)
+        args = (rows, eng._qcodes(rev), o, mr, eng.m, subw)
+        self.compare("window_keys", window_keys(*args),
+                     window_keys_ref(*args),
+                     f"{'rev' if rev else 'fwd'} {what}")
+        return rows.shape[0]
 
     # -- K5 --------------------------------------------------------------
 
@@ -551,52 +643,70 @@ class Smoke:
                     f"{case}: stdout differs from the golden")
         return wall
 
-    def reset_counts(self) -> None:
-        from fasim_tpu_torch.kernels import scan, scan_codes, window
+    def wrappers(self) -> dict:
+        from fasim_tpu_torch.kernels import scan, scan_codes, window, window_v1
 
-        scan.scan_colmax.launches = 0
-        window.window_fwd.launches = 0
-        window.window_general.launches = 0
-        scan_codes.scan_codes_colmax.launches = 0
+        return {"scan_colmax": scan.scan_colmax,
+                "scan_colmax16": scan.scan_colmax16,
+                "window_keys": window_v1.window_keys,
+                "window_fwd": window.window_fwd,
+                "window_general": window.window_general,
+                "scan_codes_colmax": scan_codes.scan_codes_colmax}
+
+    def reset_counts(self) -> None:
+        for fn in self.wrappers().values():
+            fn.launches = 0
 
     def read_counts(self) -> dict:
-        from fasim_tpu_torch.kernels import scan, scan_codes, window
-
-        return {"scan_colmax": scan.scan_colmax.launches,
-                "window_fwd": window.window_fwd.launches,
-                "window_general": window.window_general.launches,
-                "scan_codes_colmax": scan_codes.scan_codes_colmax.launches}
+        return {k: fn.launches for k, fn in self.wrappers().items()}
 
     K135 = ("scan_colmax", "window_fwd", "window_general")
-    # (golden case, DNA, RNA, extra flags, driver, kernels of its path,
-    # whether it is the main path whose counts the report gives)
+    SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
+    # (golden case, DNA, RNA, extra flags, driver, environment, kernels of
+    # its path, kernels it must not launch, whether it is a main path whose
+    # counts the report gives)
     GOLDENS = (
-        ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli", K135,
+        ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli", {}, K135,
+         (), False),
+        ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli",
+         {"FASIM_WIN_V3": "0"}, ("scan_colmax", "window_general"),
+         ("window_fwd",), False),
+        ("h19_default", "testDNA.fa", "H19.fa", [], "cli", {}, K135, (),
          False),
-        ("h19_default", "testDNA.fa", "H19.fa", [], "cli", K135, False),
         ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
-         ("scan_colmax",), False),
-        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli",
-         ("scan_colmax",), False),
+         {}, ("scan_colmax",), (), False),
+        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli", {},
+         ("scan_colmax",), (), False),
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "batched-v1",
-         ("scan_codes_colmax", "window_fwd", "window_general"), False),
-        ("meg3_sub16", "meg3sub16.fa", "MEG3.fa", [], "per-segment",
-         ("scan_codes_colmax",), True),
-        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", K135, True),
+         {}, ("scan_codes_colmax", "window_fwd", "window_general"), (),
+         False),
+        ("meg3_sub16", "meg3sub16.fa", "MEG3.fa", [], "per-segment", {},
+         ("scan_codes_colmax",), (), True),
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135, (),
+         True),
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", SWITCHED,
+         ("scan_colmax16", "window_keys"), K135, True),
     )
 
     def phase_e2e(self) -> None:
         self.walls = {}
-        for case, f1, f2, extra, driver, kernels, main in self.GOLDENS:
-            self.reset_counts()
-            wall = self.run_golden(case, f1, f2, extra, driver)
-            counts = self.read_counts()
-            print(f"  {case} ({driver}): byte-identical, wall {wall:.3f} s, "
-                  f"launches {counts}")
+        for (case, f1, f2, extra, driver, env, kernels, off,
+             main) in self.GOLDENS:
+            flags = "".join(f", {k}={v}" for k, v in env.items())
+            run = f"{case} ({driver}{flags})"
+            with switches(**env):
+                self.reset_counts()
+                wall = self.run_golden(case, f1, f2, extra, driver)
+                counts = self.read_counts()
+            print(f"  {run}: byte-identical, wall {wall:.3f} s, launches "
+                  f"{counts}")
             for k in kernels:
-                require(counts[k] > 0, f"{case} ({driver}): kernel {k} was "
-                        "never launched")
-            self.walls[f"{case} ({driver})"] = wall
+                require(counts[k] > 0, f"{run}: kernel {k} was never "
+                        "launched")
+            for k in off:
+                require(counts[k] == 0, f"{run}: kernel {k} was launched "
+                        f"{counts[k]} times")
+            self.walls[run] = wall
             if main:
                 self.launches.update({k: counts[k] for k in kernels})
 
@@ -606,11 +716,14 @@ class Smoke:
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.pack import pack_candidates
-        from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
-                                                  scan_colmax_ref)
+        from fasim_tpu_torch.kernels.scan import (
+            decode_bases, scan_colmax, scan_colmax16, scan_colmax16_ref,
+            scan_colmax_ref)
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
                                                     window_pass_ref)
+        from fasim_tpu_torch.kernels.window_v1 import (v1_rows, window_keys,
+                                                       window_keys_ref)
 
         rna, segs, lens = self.main_k1
         eng = self.engine(rna)
@@ -631,12 +744,21 @@ class Smoke:
         print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
               f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
               f"{self.plain_ms['scan_colmax']:.3f} ms")
+        self.ms["scan_colmax16"] = self.cuda_ms(
+            lambda: scan_colmax16(*args), 3)
+        self.plain_ms["scan_colmax16"] = self.cuda_ms(
+            lambda: scan_colmax16_ref(*args), 1, warm=False)
+        self.work["scan_colmax16"] = self.work["scan_colmax"]
+        print(f"  K7 scan_colmax16, the same pass: kernel "
+              f"{self.ms['scan_colmax16']:.3f} ms, plain "
+              f"{self.plain_ms['scan_colmax16']:.3f} ms")
         cm, gm = scan_colmax(*args)
         pack_ms = self.cuda_ms(
             lambda: pack_candidates(gm, cm, lens_d, eng.PACK_K), 5)
         print(f"  pack_candidates (torch ops) on that batch: {pack_ms:.3f} ms")
 
         # the largest forward and reverse dispatch of the meg3sub64 batch
+        k6_ms, k6_plain, k6_ops, k6_bytes = [], [], 0.0, 0
         for kernel, rev in (("window_fwd", False), ("window_general", True)):
             calls = [c for c in self.capture if c[3] == rev]
             segs_c, lens_c, spec, _ = max(calls,
@@ -675,6 +797,27 @@ class Smoke:
                   f"of {rows} rows (rows per width {widths}), "
                   f"m={m}: kernel {self.ms[kernel]:.3f} ms, plain "
                   f"{self.plain_ms[kernel]:.3f} ms")
+            # K6 on the same dispatch, in the v1 rows
+            k6 = [v1_rows(c, p["offs"], p["mreals"]) for _, c, p in parts]
+            qc = self.cap_eng._qcodes(rev)
+
+            def run6(fn, k6=k6, qc=qc):
+                for rows6, o, mr, subw in k6:
+                    fn(rows6, qc, o, mr, m, subw)
+
+            k6_ms.append(self.cuda_ms(lambda: run6(window_keys), 5))
+            k6_plain.append(self.cuda_ms(lambda: run6(window_keys_ref), 1,
+                                         warm=False))
+            k6_ops += ops_per_cell("window_keys", m16) * cells
+            k6_bytes += sum(5 * int(r.numel()) + 8 * int(o.numel())
+                            for r, o, _, _ in k6) + 4 * int(qc.numel())
+            print(f"  K6 window_keys, the same dispatch in "
+                  f"{sum(int(r.shape[0]) for r, *_ in k6)} v1 rows: kernel "
+                  f"{k6_ms[-1]:.3f} ms, plain {k6_plain[-1]:.3f} ms")
+        # K6's numbers are those of both dispatches
+        self.ms["window_keys"] = sum(k6_ms)
+        self.plain_ms["window_keys"] = sum(k6_plain)
+        self.work["window_keys"] = (k6_ops, k6_bytes)
         self.k5_times()
 
     def k5_times(self) -> None:

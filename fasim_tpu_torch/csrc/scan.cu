@@ -58,7 +58,7 @@ scan_colmax_kernel(const uint8_t* __restrict__ bases,
   __syncwarp();
 
   int gmax = 0;
-  fasim::sweep_columns<kThresh>(
+  fasim::sweep_columns<fasim::CellI32<kThresh>>(
       codes, N, m16, bnd + (size_t)pair * 3 * N,
       [&](int row) {
         return QueryRow{qp[row], qp[qp_stride + row], qp[2 * qp_stride + row],

@@ -52,7 +52,7 @@ scan_codes_kernel(const uint8_t* __restrict__ codes_in, int N,
   }
   __syncwarp();
   int32_t* dst = out + (size_t)row * N;
-  fasim::sweep_columns<kThresh>(
+  fasim::sweep_columns<fasim::CellI32<kThresh>>(
       codes, N, m16, bnd + (size_t)row * 3 * N,
       [&](int r) {
         const int q = qprops[r];

@@ -1,11 +1,12 @@
-// The DP core shared by K1 (scan.cu) and K5 (scan_codes.cu): one warp
-// sweeps one code row against the query and hands every column's exact
-// maximum to the caller.
+// The DP core shared by K1 (scan.cu), K5 (scan_codes.cu) and K7
+// (scan16.cu): one warp sweeps one code row (or, in K7, two code rows
+// packed into the halves of each register) against the query and hands
+// every column's exact maximum to the caller.
 //
-// Exact int32 affine-gap Smith-Waterman, gap open 16 / extend 4.  Query
-// row r scores s = code == q ? hi : lo, and in the threshold alphabet
-// s = nv where the code is N (5); rows m..m16-1 are zero-profile (phantom
-// rows, q = -1, hi = lo = nv = 0) and count toward the column max.
+// Exact affine-gap Smith-Waterman, gap open 16 / extend 4.  Query row r
+// scores s = code == q ? hi : lo, and in the threshold alphabet s = nv
+// where the code is N (5); rows m..m16-1 are zero-profile (phantom rows,
+// q = -1, hi = lo = nv = 0) and count toward the column max.
 //
 // Layout: lane k owns a band of up to kMaxRows consecutive query rows and
 // the warp sweeps the columns as a diagonal wavefront (lane k works on
@@ -15,6 +16,9 @@
 // strip after strip; a strip's bottom row (H, F, column max) goes through
 // a global scratch row read back by the next strip.  The bottom lane of
 // the last strip owns the finished column max.
+//
+// The cell arithmetic is a policy: CellI32 (one int32 cell per register,
+// K1 and K5) or CellS16x2 (two int16 cells per register, K7).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,50 +40,143 @@ struct QueryRow {
   int q, hi, lo, nv;
 };
 
+// int32 cells: codes are uint8 engine codes.
+template <bool kThresh>
+struct CellI32 {
+  using Word = int;
+  using Code = uint8_t;
+  struct Row {
+    int h, e, q, hi, lo, nv;
+  };
+  static constexpr int kTop = kNeg;  // F above query row 0
+
+  __device__ __forceinline__ static Row row(QueryRow qr) {
+    return Row{0, 0, qr.q, qr.hi, qr.lo, kThresh ? qr.nv : 0};
+  }
+  // the H handed down the warp, in the form step() reads as `hu`
+  __device__ __forceinline__ static int carry_in(int h) { return h; }
+  __device__ __forceinline__ static int carry_out(int hu) { return hu; }
+
+  // One cell: diag is H(r-1, j-1) on entry and H(r, j-1) on exit; hu is
+  // H(r-1, j) on entry and H(r, j) on exit; f is F(r-1, j) -> F(r, j).
+  __device__ __forceinline__ static void step(Row& w, int c, int& diag,
+                                              int& hu, int& f, int& cm) {
+    int sc = c == w.q ? w.hi : w.lo;
+    if (kThresh && c == 5) sc = w.nv;
+    const int ev = max(w.e - kGapExtend, w.h - kGapOpen);
+    const int tmp = max(max(diag + sc, ev), 0);
+    f = max(hu - kGapOpen, f - kGapExtend);
+    const int hv = max(tmp, f);
+    diag = w.h;
+    w.h = hv;
+    w.e = ev;
+    hu = hv;
+    cm = max(cm, hv);
+  }
+};
+
+// Two int16 cells per 32-bit register, row A in the low half and row B in
+// the high half, with Hopper's s16x2 DPX forms.  Exact while every H fits
+// in int16 (the caller's gate: H <= 5 * min(m16, N) <= 30000); E and F stay
+// >= -20 after the first row and the F sentinel above row 0 is -16384.
+//
+// A code is a prmt selector: the column's two engine codes (< 8), each
+// with a sign-replicating copy, so prmt of a row's 8-entry int8 score
+// table (lo, hi words) gives both halves' sign-extended scores in one op.
+// H - 16 is kept per row (h16) and handed down as `hu`, so each gap costs
+// one __viaddmax: 7 operations per two cells.
+template <bool kThresh>
+struct CellS16x2 {
+  using Word = unsigned;
+  using Code = uint16_t;
+  struct Row {
+    unsigned h, h16, e, tlo, thi;
+  };
+  static constexpr unsigned kTop = 0xC000C000u;  // -16384 in both halves
+  static constexpr unsigned kMin = 0x80008000u;  // -32768: max(x, kMin) = x
+  static constexpr unsigned kM4 = 0xFFFCFFFCu;   // -4
+  static constexpr unsigned kM16 = 0xFFF0FFF0u;  // -16
+  static constexpr unsigned kP16 = 0x00100010u;  // +16
+
+  static __host__ __device__ constexpr uint16_t selector(int ca, int cb) {
+    return static_cast<uint16_t>(ca | (ca | 8) << 4 | cb << 8 |
+                                 (cb | 8) << 12);
+  }
+  __device__ __forceinline__ static Row row(QueryRow qr) {
+    unsigned t[2] = {0, 0};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      int sc = c == qr.q ? qr.hi : qr.lo;
+      if (kThresh && c == 5) sc = qr.nv;
+      t[c / 4] |= (static_cast<unsigned>(sc) & 0xffu) << (8 * (c % 4));
+    }
+    return Row{0, kM16, 0, t[0], t[1]};
+  }
+  __device__ __forceinline__ static unsigned carry_in(unsigned h) {
+    return __viaddmax_s16x2(h, kM16, kMin);
+  }
+  __device__ __forceinline__ static unsigned carry_out(unsigned hu) {
+    return __viaddmax_s16x2(hu, kP16, kMin);
+  }
+
+  // As CellI32::step, with hu holding H(., j) - 16.
+  __device__ __forceinline__ static void step(Row& w, unsigned sel,
+                                              unsigned& diag, unsigned& hu,
+                                              unsigned& f, unsigned& cm) {
+    unsigned sc;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(sc) : "r"(w.tlo), "r"(w.thi),
+        "r"(sel));
+    const unsigned ev = __viaddmax_s16x2(w.e, kM4, w.h16);
+    const unsigned tmp = __viaddmax_s16x2_relu(diag, sc, ev);
+    f = __viaddmax_s16x2(f, kM4, hu);
+    const unsigned hv = __vimax_s16x2_relu(tmp, f);
+    diag = w.h;
+    w.h = hv;
+    w.e = ev;
+    w.h16 = __viaddmax_s16x2(hv, kM16, kMin);
+    hu = w.h16;
+    cm = __vimax_s16x2_relu(cm, hv);
+  }
+};
+
 // codes: the row's N codes (shared memory, written before the call and
 // followed by a __syncwarp); load(row) -> QueryRow for rows < m16; bnd:
-// int32[3, N] scratch (read only with more than one strip); emit(j, cm)
+// Word[3, N] scratch (read only with more than one strip); emit(j, cm)
 // runs on lane 31 for every column j in order.
-template <bool kThresh, class Load, class Emit>
-__device__ __forceinline__ void sweep_columns(const uint8_t* codes, int N,
-                                              int m16, int32_t* bnd,
+template <class Cell, class Load, class Emit>
+__device__ __forceinline__ void sweep_columns(const typename Cell::Code* codes,
+                                              int N, int m16,
+                                              typename Cell::Word* bnd,
                                               Load load, Emit emit) {
+  using Word = typename Cell::Word;
   const int lane = threadIdx.x % kWarp;
   // spread the rows evenly over the strips so the last one is not mostly idle
   const int nstrips = (m16 + kWarp * kMaxRows - 1) / (kWarp * kMaxRows);
   const int rpt = (m16 + kWarp * nstrips - 1) / (kWarp * nstrips);
-  int32_t* bh = bnd;  // used only with >1 strip
-  int32_t* bf = bh + N;
-  int32_t* bc = bf + N;
+  Word* bh = bnd;  // used only with >1 strip
+  Word* bf = bh + N;
+  Word* bc = bf + N;
   for (int strip = 0; strip < nstrips; ++strip) {
     const int row0 = (strip * kWarp + lane) * rpt;
     const int nr = max(0, min(rpt, m16 - row0));
-    int h[kMaxRows], e[kMaxRows], q[kMaxRows], hi[kMaxRows], lo[kMaxRows],
-        nv[kMaxRows];
+    typename Cell::Row w[kMaxRows];
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      const QueryRow qr = r < nr ? load(row0 + r) : QueryRow{-1, 0, 0, 0};
-      h[r] = 0;
-      e[r] = 0;
-      q[r] = qr.q;
-      hi[r] = qr.hi;
-      lo[r] = qr.lo;
-      nv[r] = kThresh ? qr.nv : 0;
-    }
+    for (int r = 0; r < kMaxRows; ++r)
+      w[r] = Cell::row(r < nr ? load(row0 + r) : QueryRow{-1, 0, 0, 0});
     const bool first = strip == 0;
     const bool last = strip == nstrips - 1;
-    int up_prev = 0;  // H of the row above the band at the previous column
-    int out_h = 0, out_f = kNeg, out_c = 0;
+    Word up_prev = 0;  // H of the row above the band at the previous column
+    Word out_h = 0, out_f = Cell::kTop, out_c = 0;
     for (int step = 0; step < N + kWarp - 1; ++step) {
-      int in_h = __shfl_up_sync(kFull, out_h, 1);
-      int in_f = __shfl_up_sync(kFull, out_f, 1);
-      int in_c = __shfl_up_sync(kFull, out_c, 1);
+      Word in_h = __shfl_up_sync(kFull, out_h, 1);
+      Word in_f = __shfl_up_sync(kFull, out_f, 1);
+      Word in_c = __shfl_up_sync(kFull, out_c, 1);
       const int j = step - lane;
       if (j >= 0 && j < N) {
         if (lane == 0) {
           if (first) {
             in_h = 0;
-            in_f = kNeg;
+            in_f = Cell::kTop;
             in_c = 0;
           } else {
             in_h = bh[j];
@@ -87,34 +184,22 @@ __device__ __forceinline__ void sweep_columns(const uint8_t* codes, int N,
             in_c = bc[j];
           }
         }
-        const int c = codes[j];
-        int diag = up_prev;
+        const Word c = codes[j];
+        Word diag = up_prev;
         up_prev = in_h;
-        int hu = in_h, f = in_f, cm = in_c;
+        Word hu = Cell::carry_in(in_h), f = in_f, cm = in_c;
 #pragma unroll
         for (int r = 0; r < kMaxRows; ++r) {
-          if (r < nr) {
-            int sc = c == q[r] ? hi[r] : lo[r];
-            if (kThresh && c == 5) sc = nv[r];
-            const int ev = max(e[r] - kGapExtend, h[r] - kGapOpen);
-            const int tmp = max(max(diag + sc, ev), 0);
-            f = max(hu - kGapOpen, f - kGapExtend);
-            const int hv = max(tmp, f);
-            diag = h[r];
-            h[r] = hv;
-            e[r] = ev;
-            hu = hv;
-            cm = max(cm, hv);
-          }
+          if (r < nr) Cell::step(w[r], c, diag, hu, f, cm);
         }
-        out_h = hu;
+        out_h = Cell::carry_out(hu);
         out_f = f;
         out_c = cm;
         if (lane == kWarp - 1) {
           if (last) {
             emit(j, cm);
           } else {
-            bh[j] = hu;
+            bh[j] = out_h;
             bf[j] = f;
             bc[j] = cm;
           }

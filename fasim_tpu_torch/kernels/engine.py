@@ -13,14 +13,23 @@ engine itself with the `numpy_engine` contract (`__call__`, built on
   * lut6_s / lut6_t / istr int32[T, 128]: the same per base class (K1);
   * qp2_ssw / qp2_thresh int32[5, mp2]: the scan query rows (K1);
   * qprops_ssw / qprops_thresh int32[4, mp]: the v1 scan query rows (K5);
-  * qwin_fwd / qwin_rev int32[3, mpw]: the window query rows (K3, K4).
+  * qwin_fwd / qwin_rev int32[3, mpw]: the window query rows (K3, K4;
+    row 0 holds the query codes K6 streams).
 
 The engine runs on cuda:0 unless constructed with device="cpu".  On a
 CUDA device every device pass is a hand-written kernel; on the CPU the
 wrappers take the kernels' plain PyTorch versions.
+
+The switches of fasim_tpu's TpuScanEngine are read where it reads them:
+FASIM_SCAN16=1 (at construction) runs the scan passes inside the int16
+gate on K7; FASIM_WIN_V1=1 (at setup_windows) runs every window pass on
+K6; FASIM_WIN_V3=0 (at setup_windows) sends the uniform forward specs to
+K4 instead of K3.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -30,10 +39,11 @@ from ..rules import SSW_ENC, THRESH_ENC
 
 from .pack import pack_candidates
 from .scan import (N_BASE, PURE, PURE_OR_PAD, decode_bases, make_lut6,
-                   make_qp2, reverse_prefix, scan_colmax)
+                   make_qp2, reverse_prefix, scan_colmax, scan_colmax16)
 from .scan_codes import apply_byte_break, make_qprops, scan_codes_colmax
 from .window import (WIDTHS, both_strands, gather_window_codes,
                      width_class, window_fwd, window_general, window_qp)
+from .window_v1 import query_rows, v1_ends
 
 SPEC_KEYS = ("seg_idx", "scan_idx", "base", "dirn", "rlens", "offs",
              "terms", "mreals")
@@ -79,6 +89,9 @@ class TorchScanEngine:
                    "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh"),
                    "qprops_ssw": make_qprops(rna, "ssw"),
                    "qprops_thresh": make_qprops(rna, "thresh")})
+        self.scan16 = os.environ.get("FASIM_SCAN16", "0") == "1"
+        self.win_v1 = False
+        self.win_v3 = True
 
     # -- state ---------------------------------------------------------------
 
@@ -95,18 +108,25 @@ class TorchScanEngine:
     def load_state(self, tables: dict[str, np.ndarray]) -> None:
         """Replace tables with ones built elsewhere, e.g. a JAX engine's
         (`XlaScanEngine._scan_luts`, `np.asarray` of a `TpuScanEngine`'s
-        `_scan_luts6`, `qp2_*`, `qprops_*`, or `_window_qp` rows)."""
+        `_scan_luts6`, `qp2_*`, `qprops_*`, or `_window_qp` rows).  The
+        window tables may also come as the query codes int32[NQ * 128] of
+        a TpuScanEngine set up under FASIM_WIN_V1=1
+        (`np.asarray(tpu.qwin_fwd)[:, 0, :].reshape(-1)`)."""
         mp2 = _round_up(self.m16 + 64, 128)
         mp = _round_up(self.m16, 128)
         mpw = _round_up(self.m + 63, 128)
         want = {"qp2_ssw": (5, mp2), "qp2_thresh": (5, mp2),
                 "qprops_ssw": (4, mp), "qprops_thresh": (4, mp),
                 "qwin_fwd": (3, mpw), "qwin_rev": (3, mpw)}
+        tables = dict(tables)
         T = None
         for key, arr in tables.items():
             if key not in STATE_DTYPES:
                 raise KeyError(f"load_state: unknown table {key!r}")
             arr = np.asarray(arr)
+            if key in ("qwin_fwd", "qwin_rev") and arr.shape == (
+                    query_rows(self.m),):
+                arr = tables[key] = self._window_rows(arr)
             if key in want:
                 shape = want[key]
             else:
@@ -138,11 +158,23 @@ class TorchScanEngine:
         self._set({"lut_s": lut_s, "lut_t": lut_t, "is_tr": is_tr,
                    "lut6_s": lut6_s, "lut6_t": lut6_t, "istr": istr})
 
+    def _window_rows(self, qc: np.ndarray) -> np.ndarray:
+        """The v1 query codes (SSW codes, -1 past m) -> window_qp rows."""
+        mpw = _round_up(self.m + 63, 128)
+        q = np.full(mpw, -1, np.int32)
+        q[:len(qc)] = qc
+        real = np.arange(mpw) < self.m
+        return np.stack([q, np.where(real, np.where(q < 4, 5, -4), 0),
+                         np.where(real, -4, 0)]).astype(np.int32)
+
     def setup_windows(self, rna: np.ndarray) -> None:
         """Window query rows: forward uses the query as is, reverse the
         reversed query (a reverse pass on the query prefix [0..e] is the
         same DP on the reversed query with the leading m-1-e rows' profile
-        zeroed — the `offs` of a reverse spec)."""
+        zeroed — the `offs` of a reverse spec).  Reads FASIM_WIN_V1 and
+        FASIM_WIN_V3 (tpu.py:470, 510)."""
+        self.win_v1 = os.environ.get("FASIM_WIN_V1", "0") == "1"
+        self.win_v3 = os.environ.get("FASIM_WIN_V3", "1") == "1"
         self._set({"qwin_fwd": window_qp(rna),
                    "qwin_rev": window_qp(rna[::-1])})
 
@@ -166,12 +198,14 @@ class TorchScanEngine:
         """Scan a batch of raw segments uint8[S, N] (pad byte 0; numpy or
         a tensor — pass the host bytes as host_segs then, for the purity
         test).  Returns tensors on the engine's device: (thresh int32[S, T],
-        colmax uint8[S, T, N] clamped at 255).  The kernel's gap is exact
+        colmax uint8[S, T, N] clamped at 255).  The kernels' gap is exact
         at any length, so `full_prefix` (fasim_tpu's escalation rerun)
-        gives the same thresholds; it is accepted for that control flow.
-        K1 over the raw segments, or with use_v2=False K5 over code rows
-        built on the device."""
-        del full_prefix
+        gives the same thresholds; it only routes, as in fasim_tpu.  K1
+        over the raw segments; under FASIM_SCAN16=1 K7 for the passes
+        fasim_tpu runs in int16 (tpu.py:371-372, 1113-1125): inside the
+        gate, the ssw pass unless fused and full_prefix, the threshold
+        pass unless full_prefix.  With use_v2=False K5 over code rows
+        built on the device (no int16 variant, as in fasim_tpu)."""
         fused = self.query_pure and self._segs_pure(
             host_segs if host_segs is not None else segs)
         segs_t = self._to_dev(segs, torch.uint8)
@@ -180,14 +214,21 @@ class TorchScanEngine:
             return self._scan_segments_v1(segs_t, lens_t, fused)
         bases, bases_rev = decode_bases(segs_t, lens_t)
         d = self._dev
-        cm, gm = scan_colmax(bases, bases_rev, d["lut6_s"], d["istr"],
-                             d["qp2_ssw"], self.m16, thresh_alphabet=False)
+        T = d["istr"].shape[0]
+        ok16 = (self.scan16 and T % 2 == 0
+                and 5 * min(self.m16, segs.shape[1]) <= 30000)
+        ssw = scan_colmax16 if ok16 and not (fused and full_prefix) \
+            else scan_colmax
+        cm, gm = ssw(bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"],
+                     self.m16, thresh_alphabet=False)
         if not fused:
             # query U/N or segment bytes outside ACGT: the threshold
             # alphabet scores them differently, so it needs its own pass
-            _, gm = scan_colmax(bases, bases_rev, d["lut6_t"], d["istr"],
-                                d["qp2_thresh"], self.m16,
-                                thresh_alphabet=True, want_cm=False)
+            thresh = scan_colmax16 if ok16 and not full_prefix \
+                else scan_colmax
+            _, gm = thresh(bases, bases_rev, d["lut6_t"], d["istr"],
+                           d["qp2_thresh"], self.m16, thresh_alphabet=True,
+                           want_cm=False)
         return gm, cm
 
     def _scan_segments_v1(self, segs: torch.Tensor, lengths: torch.Tensor,
@@ -272,12 +313,13 @@ class TorchScanEngine:
         window read direction), rlens, offs, terms, mreals -> host int32
         [rows, 3] (best, end_col, end_row).  Windows are gathered on the
         device from the batch's segments and the scan LUTs.  Uniform
-        forward specs go to K3, everything else to K4."""
+        forward specs go to K3 (to K4 under FASIM_WIN_V3=0), everything
+        else to K4; under FASIM_WIN_V1=1 every spec goes to K6."""
         rows = len(spec["seg_idx"])
         if rows == 0:
             return np.zeros((0, 3), np.int32)
         cols = {k: np.asarray(spec[k]) for k in SPEC_KEYS}
-        uniform = (not rev and (cols["offs"] == 0).all()
+        uniform = (self.win_v3 and not rev and (cols["offs"] == 0).all()
                    and (cols["terms"] == -1).all()
                    and (cols["mreals"] == self.m16).all()
                    and (cols["dirn"] == 1).all())
@@ -300,7 +342,11 @@ class TorchScanEngine:
                 both, S, N, d["lut_s"], d["is_tr"], part["seg_idx"],
                 part["scan_idx"], part["base"], part["dirn"],
                 part["rlens"], width)
-            if uniform:
+            if self.win_v1:
+                ends = v1_ends(codes, self._qcodes(rev), part["offs"],
+                               part["terms"], part["rlens"], part["mreals"],
+                               self.m)
+            elif uniform:
                 ends = window_fwd(codes, qp, part["rlens"], self.m,
                                   self.m16)
             else:
@@ -310,18 +356,31 @@ class TorchScanEngine:
             out[torch.from_numpy(sel).to(self.device)] = ends
         return out.cpu().numpy()
 
+    def _qcodes(self, rev: bool) -> torch.Tensor:
+        """The query codes K6 streams: row 0 of the window rows, cut to
+        query_rows(m)."""
+        return self._dev["qwin_rev" if rev else "qwin_fwd"][
+            0, :query_rows(self.m)]
+
     def window_pass(self, codes: np.ndarray, offs: np.ndarray,
                     terms: np.ndarray, rlens: np.ndarray,
                     mreals: np.ndarray, rev: bool) -> np.ndarray:
         """Window pass over prebuilt codes uint8[rows, W] (SSW alphabet;
         columns >= rlen are never read) with per-row offs / terms / rlens
         / mreals -> host int32[rows, 3] (contract of
-        XlaScanEngine.window_pass), through K4."""
+        XlaScanEngine.window_pass), through K4; under FASIM_WIN_V1=1
+        through K6, at W rounded up to 128 (tpu.py:551-574)."""
         rows, W = codes.shape
         if rows == 0:
             return np.zeros((0, 3), np.int32)
         self._check_rows(np.asarray(mreals))
         meta = np.stack([offs, terms, rlens, mreals]).astype(np.int32)
+        if self.win_v1:
+            cp = np.full((rows, _round_up(W, 128)), 4, np.uint8)
+            cp[:, :W] = codes
+            o, t, r, mr = self._to_dev(meta, torch.int32)
+            return v1_ends(self._to_dev(cp, torch.uint8), self._qcodes(rev),
+                           o, t, r, mr, self.m).cpu().numpy()
         klass = width_class(rlens)
         qp = self._dev["qwin_rev" if rev else "qwin_fwd"]
         out = np.zeros((rows, 3), np.int32)

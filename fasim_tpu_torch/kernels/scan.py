@@ -1,11 +1,16 @@
-"""K1 scan_colmax: the scan pass's per-column maxima and thresholds.
+"""K1 scan_colmax and K7 scan_colmax16: the scan pass's per-column maxima
+and thresholds.
 
-Replaces fasim_tpu/kernels/tpu.py:_scan2_kernel and the set-up around it
-in _device_scan2 / TpuScanEngine.  The kernel is csrc/scan.cu (its header
-says what bounds it on the card and how the design meets that);
+K1 replaces fasim_tpu/kernels/tpu.py:_scan2_kernel and the set-up around
+it in _device_scan2 / TpuScanEngine.  The kernel is csrc/scan.cu (its
+header says what bounds it on the card and how the design meets that);
 `scan_colmax_ref` is its plain PyTorch version, ported from
-kernels/xla.py:colmax_xla.  `scan_colmax` takes the plain version for CPU
-tensors and launches the kernel for CUDA tensors.
+kernels/xla.py:colmax_xla.  K7 replaces the int16 path of the same Pallas
+kernel (FASIM_SCAN16=1): the same outputs from a 16-bit DP, two pairs per
+32-bit register, for batches inside the int16 gate (`in_gate16`).  Its
+kernel is csrc/scan16.cu and `scan_colmax16_ref` its plain version, in
+torch.int16.  `scan_colmax` / `scan_colmax16` take the plain version for
+CPU tensors and launch the kernel for CUDA tensors.
 
 Tables kept in the JAX package's shapes, so an engine's state compares
 literally with a `TpuScanEngine`'s:
@@ -106,6 +111,29 @@ def decode_bases(segs: torch.Tensor, lengths: torch.Tensor):
     return bases, reverse_prefix(bases, lengths)
 
 
+def in_gate16(T: int, m16: int, N: int) -> bool:
+    """K7's gate (tpu.py:371-372): an even transform count, since pairs
+    2k and 2k + 1 share a register, and every H within int16 with the
+    decay margin, H <= 5 * min(m16, N) <= 30000."""
+    return T % 2 == 0 and 5 * min(m16, N) <= 30000
+
+
+def _check_gate16(T: int, m16: int, N: int) -> None:
+    if not in_gate16(T, m16, N):
+        raise ValueError(f"scan_colmax16: T={T}, m16={m16}, N={N} is "
+                         "outside the int16 gate")
+
+
+def _pair_codes(bases, bases_rev, lut6, istr) -> torch.Tensor:
+    """Engine codes int64[S * T, N] of every (segment, transform) pair."""
+    S, N = bases.shape
+    T = lut6.shape[0]
+    rev = istr[:, 0].ne(0)[None, :, None]
+    sel = torch.where(rev, bases_rev[:, None, :], bases[:, None, :])
+    return torch.gather(lut6[:, :N_BASE].unsqueeze(0).expand(S, T, N_BASE),
+                        2, sel.long()).reshape(S * T, N)
+
+
 def scan_colmax_ref(bases: torch.Tensor, bases_rev: torch.Tensor,
                     lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
                     m16: int, thresh_alphabet: bool):
@@ -116,10 +144,7 @@ def scan_colmax_ref(bases: torch.Tensor, bases_rev: torch.Tensor,
     S, N = bases.shape
     T = lut6.shape[0]
     dev = bases.device
-    rev = istr[:, 0].ne(0)[None, :, None]
-    sel = torch.where(rev, bases_rev[:, None, :], bases[:, None, :])
-    codes = torch.gather(lut6[:, :N_BASE].unsqueeze(0).expand(S, T, N_BASE),
-                         2, sel.long()).reshape(S * T, N)
+    codes = _pair_codes(bases, bases_rev, lut6, istr)
     q, hi, lo, nval = (qp[r, :m16] for r in range(4))
     idx = torch.arange(m16, dtype=torch.int32, device=dev)
     fbias = idx * GAP_EXTEND
@@ -146,10 +171,98 @@ def scan_colmax_ref(bases: torch.Tensor, bases_rev: torch.Tensor,
     return cm.clamp(max=255).to(torch.uint8), cm.amax(2)
 
 
+def scan_colmax16_ref(bases: torch.Tensor, bases_rev: torch.Tensor,
+                      lut6: torch.Tensor, istr: torch.Tensor,
+                      qp: torch.Tensor, m16: int, thresh_alphabet: bool):
+    """Plain version of K7, its arithmetic in torch.int16: one DP column
+    step at a time, the vertical gap resolved by a decaying prefix max
+    run(i) = max over d >= 0 of tmp(i - d) - 4d (the int16 form of
+    tpu.py:_dp_col2, over the whole query), whose values stay within
+    [-16384, 30000].  Offsets past 8192 rows are not needed: their decay
+    exceeds any H under the gate.  Refuses batches outside `in_gate16`.
+    Returns scan_colmax_ref's (colmax uint8[S, T, N], max int32[S, T])."""
+    S, N = bases.shape
+    T = lut6.shape[0]
+    _check_gate16(T, m16, N)
+    dev = bases.device
+    i16 = torch.int16
+    codes = _pair_codes(bases, bases_rev, lut6, istr)
+    q, hi, lo, nval = (qp[r, :m16].to(i16) for r in range(4))
+    rows = S * T
+    h = torch.zeros(rows, m16, dtype=i16, device=dev)
+    e = torch.zeros_like(h)
+    zero = torch.zeros(rows, 1, dtype=i16, device=dev)
+    cm = torch.empty(rows, N, dtype=i16, device=dev)
+    for j in range(N):
+        c = codes[:, j:j + 1]
+        s = torch.where(c == q, hi, lo)
+        if thresh_alphabet:
+            s = torch.where(c == 5, nval, s)
+        e = torch.maximum(e - GAP_EXTEND, h - GAP_OPEN)
+        diag = torch.cat([zero, h[:, :-1]], 1)
+        tmp = torch.maximum(diag + s, e).clamp_min_(0)
+        run = tmp
+        k = 1
+        while k < m16 and k <= 4096:
+            shifted = torch.cat([torch.zeros_like(run[:, :k]), run[:, :-k]],
+                                1)
+            run = torch.maximum(run, shifted - k * GAP_EXTEND)
+            k *= 2
+        f = torch.cat([zero, run[:, :-1]], 1) - GAP_OPEN
+        h = torch.maximum(tmp, f)
+        cm[:, j] = h.amax(1)
+    cm = cm.view(S, T, N)
+    return (cm.clamp(max=255).to(torch.uint8),
+            cm.amax(2).to(torch.int32))
+
+
+def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
+            lut6, istr, qp, m16: int, thresh_alphabet: bool, want_cm: bool):
+    """Check the CUDA inputs, launch `entry` and count the launch on
+    `wrapper`: (colmax or None, per-pair max)."""
+    name = wrapper.__name__
+    if bases.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {bases.device}")
+    S, N = bases.shape
+    T = lut6.shape[0]
+    for arg, t, dt in (("bases", bases, torch.uint8),
+                       ("bases_rev", bases_rev, torch.uint8),
+                       ("lut6", lut6, torch.int32),
+                       ("istr", istr, torch.int32),
+                       ("qp", qp, torch.int32)):
+        if t.device != bases.device or t.dtype != dt \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous "
+                             f"{dt} tensor on {bases.device}")
+    if (bases_rev.shape != bases.shape or lut6.shape[1] < N_BASE
+            or istr.shape[0] != T or qp.shape[0] < 4 or qp.shape[1] < m16):
+        raise ValueError(f"{name}: inconsistent shapes")
+    lib = _build.lib()
+    dev = bases.device
+    gm = torch.empty(S, T, dtype=torch.int32, device=dev)
+    cm = (torch.empty(S, T, N, dtype=torch.uint8, device=dev) if want_cm
+          else None)
+    # one strip's bottom row (H, F, column max) per warp
+    bnd = (torch.empty(S * T // pairs_per_warp * 3 * N, dtype=torch.int32,
+                       device=dev)
+           if m16 > lib.fasim_scan_strip_rows() else None)
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            bases.data_ptr(), bases_rev.data_ptr(), lut6.data_ptr(),
+            lut6.stride(0), istr.data_ptr(), istr.stride(0), qp.data_ptr(),
+            qp.stride(0), S, T, N, m16, int(thresh_alphabet),
+            None if bnd is None else bnd.data_ptr(),
+            None if cm is None else cm.data_ptr(), gm.data_ptr(),
+            _build.stream_of(bases))
+    _build.check(err, entry)
+    _build.count_launch(wrapper)
+    return cm, gm
+
+
 def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
                 lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
                 m16: int, thresh_alphabet: bool, want_cm: bool = True):
-    """(colmax uint8[S, T, N] or None, per-pair max int32[S, T]).
+    """K1: (colmax uint8[S, T, N] or None, per-pair max int32[S, T]).
 
     CPU tensors take `scan_colmax_ref`; CUDA tensors launch the kernel
     (and count the launch in `scan_colmax.launches`); anything else
@@ -158,41 +271,25 @@ def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
         cm, gm = scan_colmax_ref(bases, bases_rev, lut6, istr, qp, m16,
                                  thresh_alphabet)
         return (cm if want_cm else None), gm
-    if bases.device.type != "cuda":
-        raise ValueError(f"scan_colmax: unsupported device {bases.device}")
-    S, N = bases.shape
-    T = lut6.shape[0]
-    for name, t, dt in (("bases", bases, torch.uint8),
-                        ("bases_rev", bases_rev, torch.uint8),
-                        ("lut6", lut6, torch.int32),
-                        ("istr", istr, torch.int32),
-                        ("qp", qp, torch.int32)):
-        if t.device != bases.device or t.dtype != dt \
-                or not t.is_contiguous():
-            raise ValueError(f"scan_colmax: {name} must be a contiguous "
-                             f"{dt} tensor on {bases.device}")
-    if (bases_rev.shape != bases.shape or lut6.shape[1] < N_BASE
-            or istr.shape[0] != T or qp.shape[0] < 4 or qp.shape[1] < m16):
-        raise ValueError("scan_colmax: inconsistent shapes")
-    lib = _build.lib()
-    dev = bases.device
-    gm = torch.empty(S, T, dtype=torch.int32, device=dev)
-    cm = (torch.empty(S, T, N, dtype=torch.uint8, device=dev) if want_cm
-          else None)
-    strip_rows = lib.fasim_scan_strip_rows()
-    bnd = (torch.empty(S * T * 3 * N, dtype=torch.int32, device=dev)
-           if m16 > strip_rows else None)
-    with torch.cuda.device(dev):
-        err = lib.fasim_scan_colmax(
-            bases.data_ptr(), bases_rev.data_ptr(), lut6.data_ptr(),
-            lut6.stride(0), istr.data_ptr(), istr.stride(0), qp.data_ptr(),
-            qp.stride(0), S, T, N, m16, int(thresh_alphabet),
-            None if bnd is None else bnd.data_ptr(),
-            None if cm is None else cm.data_ptr(), gm.data_ptr(),
-            _build.stream_of(bases))
-    _build.check(err, "fasim_scan_colmax")
-    _build.count_launch(scan_colmax)
-    return cm, gm
+    return _launch(scan_colmax, "fasim_scan_colmax", 1, bases, bases_rev,
+                   lut6, istr, qp, m16, thresh_alphabet, want_cm)
+
+
+def scan_colmax16(bases: torch.Tensor, bases_rev: torch.Tensor,
+                  lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
+                  m16: int, thresh_alphabet: bool, want_cm: bool = True):
+    """K7: scan_colmax's outputs from the 16-bit DP, for a batch inside
+    `in_gate16` (else ValueError).  CPU tensors take `scan_colmax16_ref`;
+    CUDA tensors launch the kernel (counted in `scan_colmax16.launches`);
+    anything else raises."""
+    if bases.device.type == "cpu":
+        cm, gm = scan_colmax16_ref(bases, bases_rev, lut6, istr, qp, m16,
+                                   thresh_alphabet)
+        return (cm if want_cm else None), gm
+    _check_gate16(lut6.shape[0], m16, bases.shape[1])
+    return _launch(scan_colmax16, "fasim_scan_colmax16", 2, bases,
+                   bases_rev, lut6, istr, qp, m16, thresh_alphabet, want_cm)
 
 
 scan_colmax.launches = 0
+scan_colmax16.launches = 0

@@ -34,6 +34,17 @@ def _env():
     ("neat1t", "testDNA.fa", "NEAT1t.fa", []),
 ])
 def test_port_cli_byte_identical(tmp_path, case, f1, f2, extra):
+    _check_cli(tmp_path, case, f1, f2, extra, {})
+
+
+def test_port_cli_switch_paths_byte_identical(tmp_path):
+    """FASIM_SCAN16=1 FASIM_WIN_V1=1: the scan passes on K7's plain
+    version and every window pass on K6's."""
+    _check_cli(tmp_path, "h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"],
+               {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"})
+
+
+def _check_cli(tmp_path, case, f1, f2, extra, env):
     golden_dir = os.path.join(GOLDEN, case)
     shutil.copy(os.path.join(ORACLE, f1), tmp_path)
     shutil.copy(os.path.join(ORACLE, f2), tmp_path)
@@ -43,8 +54,8 @@ def test_port_cli_byte_identical(tmp_path, case, f1, f2, extra):
         [sys.executable, "-m", "fasim_tpu_torch.cli", "-f1", f1, "-f2", f2,
          "-O", "out/", "--tpu-stdout-compat", "true", "--tpu-engine",
          "torch", *extra],
-        cwd=tmp_path, env=_env(), check=True, capture_output=True,
-        timeout=600)
+        cwd=tmp_path, env=dict(_env(), **env), check=True,
+        capture_output=True, timeout=600)
     produced = sorted(os.listdir(out))
     expected = sorted(f for f in os.listdir(golden_dir) if f != "stdout.txt")
     assert produced == expected

@@ -1,7 +1,8 @@
 """The port stands alone: with `jax` and the JAX package `fasim_tpu`
 blocked at import, every module of `fasim_tpu_torch` and `chip_smoke`
 imports, and a scan, a window pass, the numpy_engine call, the
-per-segment pipeline and a `-F` scan run on the CPU."""
+per-segment pipeline, a `-F` scan and a batched scan under FASIM_SCAN16=1
+FASIM_WIN_V1=1 run on the CPU."""
 
 import os
 import subprocess
@@ -71,6 +72,16 @@ work, _ = batched.enumerate_work(Params(do_fast_sim=False),
                                  [type("R", (), {"seq": dna})()])
 batched.scan_work(Params(do_fast_sim=False), rna, work, scans, eng)
 assert hits and hits_f, (len(hits), len(hits_f))
+# the switch paths (K7 and K6 plain versions) give the default path's hits
+import os
+
+rec = [type("R", (), {"seq": dna})()]
+want = batched.scan_records(Params(), rec, rna, eng)
+os.environ.update(FASIM_SCAN16="1", FASIM_WIN_V1="1")
+eng16 = TorchScanEngine(rna, device="cpu")
+got = batched.scan_records(Params(), rec, rna, eng16)
+assert eng16.scan16 and eng16.win_v1
+assert want[0] and got == want, (len(got[0]), len(want[0]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fasim_tpu"))
 assert not bad, bad

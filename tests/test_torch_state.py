@@ -113,6 +113,52 @@ def test_engine_on_jax_state_equals_xla():
         np.asarray(xla.window_pass(codes, *meta, rev=False)))
 
 
+def test_engine_on_jax_v1_state_equals_tpu_switch_paths(monkeypatch):
+    """The port loaded from the tables of a TpuScanEngine set up under
+    FASIM_SCAN16=1 FASIM_WIN_V1=1, its window tables given as that
+    engine's v1 query codes, reproduces that engine: the int16 scan
+    passes (interpret mode) and the v1 window ends."""
+    monkeypatch.setenv("FASIM_SCAN16", "1")
+    monkeypatch.setenv("FASIM_WIN_V1", "1")
+    rng = np.random.default_rng(12)
+    rna = _rna(12, 70)
+    scans = rules.scan_list(0, 0)
+    tpu = TpuScanEngine(rna, interpret=True)
+    tpu.setup_scans(scans)
+    tpu.setup_windows(rna)
+    assert tpu.scan16 and not tpu.win_v2
+    tpu.win_rows = 8
+    tables = _jax_tables(rna, scans)
+    own_rows = {k: tables[k] for k in ("qwin_fwd", "qwin_rev")}
+    for key in own_rows:
+        tables[key] = np.asarray(getattr(tpu, key))[:, 0, :].reshape(-1)
+    port = TorchScanEngine(rna, device="cpu")
+    port.setup_windows(rna)
+    port.load_state(tables)
+    assert port.scan16 and port.win_v1
+    for key, arr in own_rows.items():
+        np.testing.assert_array_equal(port.state()[key], arr, err_msg=key)
+    segs = np.zeros((2, 256), np.uint8)
+    lens = np.array([256, 190], np.int32)
+    for i, n in enumerate(lens):
+        segs[i, :n] = np.frombuffer(b"ACGTN", np.uint8)[
+            rng.integers(0, 5, n)]
+    for got, want in zip(port.scan_segments(segs, lens),
+                         tpu.scan_segments(segs, lens)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    R, W, m = 11, 128, len(rna)
+    codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
+    meta = (rng.integers(0, m // 2, R).astype(np.int32),
+            np.where(rng.random(R) < 0.5, -1,
+                     rng.integers(5, 40, R)).astype(np.int32),
+            rng.integers(4, W + 1, R).astype(np.int32),
+            (m + rng.integers(0, 16, R)).astype(np.int32))
+    for rev in (False, True):
+        np.testing.assert_array_equal(
+            port.window_pass(codes, *meta, rev=rev),
+            tpu.window_pass(codes, *meta, rev=rev))
+
+
 def test_load_state_rejects_mismatched_tables():
     rna = _rna(2, 40)
     eng = _port(rna, rules.scan_list(0, 0))
