@@ -17,8 +17,10 @@ Phases, each printing one line with its seconds:
      query, a 50 kb segment; K7 against K1's plain version on the last),
      the engine's K7/K1 routing under FASIM_SCAN16=1 (odd T, out of the
      int16 gate, the full-prefix rerun), the candidate packing against
-     its numpy mirror, K3 window_fwd on every width class, K4
-     window_general on the specs of a real candidate stage, K6
+     its numpy mirror, K3 window_fwd on every width class (rlens of 32
+     columns and fewer included), on a NEAT1-length query and on the
+     specs of a real candidate stage, the engine's K3 gate (K3 at m =
+     K3_MAX_M, K4 one row past it), K4 window_general on those specs, K6
      window_keys on every width class (two 64-column windows per row
      included) and on the same specs, K5 scan_codes_colmax (the
      per-segment shape in both alphabets, a packed batch, impure codes
@@ -39,10 +41,12 @@ Phases, each printing one line with its seconds:
      K4);
   5. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K7 at K1's shape, K6 on K3's
-     forward and K4's reverse dispatch), and each kernel's bound: the
-     larger of the least integer operations its cells need
-     (ops_per_cell) over the card's int32 rate (SMs x 64 lanes x the max
-     SM clock) and its bytes over 3.35 TB/s.
+     forward and K4's reverse dispatch; on K3's dispatch also the int32
+     layout K3 had before, window_general with the uniform specs, and
+     the dispatch's rlen histogram), each kernel's bound: the larger of
+     the least integer operations its cells need (ops_per_cell) over the
+     card's int32 rate (SMs x 64 lanes x the max SM clock) and its bytes
+     over 3.35 TB/s, and the window kernels' ptxas registers.
 
 Then one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
@@ -79,12 +83,34 @@ def ops_per_cell(kernel: str, m16: int) -> float:
     by the column's code gives the sign-extended score in either
     alphabet), H - 16 once for both gaps 1, E and F one __viaddmax each,
     H 2 (__viaddmax_relu of diag + s and E, then max with F), the column
-    max 1.  Scores lie in [-20, 5 * m16], so where that fits in 16 bits
-    the two-lane s16x2 forms do two cells per operation.  K3 / K4 add 2
-    for each column's (max, lowest row), one max over a 32-bit key
-    max * 2048 + (2047 - row)."""
-    ops = 7 / 2 if 5 * m16 <= 32767 else 7
-    return ops + (2 if kernel.startswith("window") else 0)
+    max 1.  Where every H fits in 16 bits the two-lane s16x2 forms do two
+    cells per operation: 3.5.  A scan's H lies in [0, 5 * m16], so the
+    scans take 3.5 only while 5 * m16 <= 32767; a window's H is at most
+    5 * min(m, 256) <= 1,280 at any query length, so the window kernels
+    always do, and add 2 for each column's (max, lowest row), one max over
+    a 32-bit key max * 2048 + (2047 - row): 5.5."""
+    if kernel.startswith("window"):
+        return 7 / 2 + 2
+    return 7 / 2 if 5 * m16 <= 32767 else 7
+
+
+def ptxas_registers() -> dict:
+    """Registers per kernel entry (mangled name) from the ptxas report of
+    the last build (build/kernels/build.log)."""
+    import re
+
+    from fasim_tpu_torch.kernels import _build
+
+    regs, entry = {}, None
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found and entry:
+            regs[entry] = int(found.group(1))
+            entry = None
+    return regs
 
 
 class SmokeError(AssertionError):
@@ -122,7 +148,7 @@ class Smoke:
                           "fasim_tpu/kernels/tpu.py:911"),
         "window_keys": ("fasim_tpu_torch/csrc/window_v1.cu",
                         "fasim_tpu/kernels/tpu.py:1364"),
-        "window_fwd": ("fasim_tpu_torch/csrc/window.cu",
+        "window_fwd": ("fasim_tpu_torch/csrc/window_fwd.cu",
                        "fasim_tpu/kernels/tpu.py:1796"),
         "window_general": ("fasim_tpu_torch/csrc/window.cu",
                            "fasim_tpu/kernels/tpu.py:1529"),
@@ -351,19 +377,28 @@ class Smoke:
                     f"pack_candidates {name} differs from the numpy mirror")
         print(f"  pack_candidates: equal to the numpy mirror "
               f"(max cnt {int(want[2].max())})")
+        self.window_checks(segs, lens, eng)
+        self.capture = self.capture_specs()
+        self.spec_checks()
+        self.k5_checks()
 
-        # K3 on every width class, incl. rlens in (196, 256] ---------------
+    def window_checks(self, segs, lens, eng) -> None:
+        """K3 and K6 on every width class, incl. rlens in (196, 256], of
+        windows gathered from a batch; K3 on a NEAT1-length query and on
+        both sides of its gate."""
+        np = self.np
+        torch = self.torch
         from fasim_tpu_torch.kernels.window import (
             both_strands, gather_window_codes, width_class, window_fwd,
-            window_general, window_pass_ref)
+            window_pass_ref)
 
         segs_d = torch.from_numpy(segs).to(self.dev)
-        both = both_strands(segs_d, lens_d)
+        both = both_strands(segs_d, torch.from_numpy(lens).to(self.dev))
         S, N = segs.shape
         d = eng._dev
         rows = 512
-        for lo, hi in ((25, 48), (49, 64), (65, 96), (97, 128), (129, 196),
-                       (197, 256)):
+        for lo, hi in ((1, 32), (25, 48), (49, 64), (65, 96), (97, 128),
+                       (129, 196), (197, 256)):
             rl = self.rng.integers(lo, hi + 1, rows).astype(np.int32)
             seg_idx = self.rng.integers(0, S, rows).astype(np.int32)
             base = np.array([self.rng.integers(0, max(1, lens[s] - r + 1))
@@ -375,7 +410,8 @@ class Smoke:
             codes = gather_window_codes(both, S, N, d["lut_s"], d["is_tr"],
                                         *spec, W)
             qp = d["qwin_fwd"]
-            got = window_fwd(codes, qp, spec[4], eng.m, eng.m16)
+            got = window_fwd(codes, qp, spec[4], eng.m, eng.m16,
+                             d["wtab_fwd"])
             full = lambda v: torch.full((rows,), v, dtype=torch.int32,
                                         device=self.dev)
             want = window_pass_ref(codes, qp, full(0), full(-1), spec[4],
@@ -387,9 +423,15 @@ class Smoke:
                                 f"rlens {lo}..{hi}")
             print(f"  K6 rlens {lo}..{hi} (W={W}): {n} kernel rows, keys "
                   "equal")
+        self.k3_neat1()
+        self.k3_gate()
 
-        # K4 (and K3) on the specs of a real candidate stage ----------------
-        self.capture = self.capture_specs()
+    def spec_checks(self) -> None:
+        """K4, K3 and K6 on the specs of a real candidate stage."""
+        from fasim_tpu_torch.kernels.window import (window_fwd,
+                                                    window_general,
+                                                    window_pass_ref)
+
         for rev in (False, True):
             calls = [c for c in self.capture if c[3] == rev]
             n = 0
@@ -406,13 +448,94 @@ class Smoke:
                     if not rev:  # the production forward specs are K3's
                         self.compare("window_fwd", window_fwd(
                             codes, qp, part["rlens"], self.cap_eng.m,
-                            self.cap_eng.m16), want, f"fwd specs W={W}")
+                            self.cap_eng.m16,
+                            self.cap_eng._dev["wtab_fwd"]), want,
+                            f"fwd specs W={W}")
                     n += codes.shape[0]
                     self.k6_compare(codes, part["offs"], part["mreals"],
                                     self.cap_eng, rev, f"specs W={W}")
-            print(f"  K4, K6 {'reverse' if rev else 'forward'} specs of a "
-                  f"real candidate stage: {n} rows equal (K6: keys)")
-        self.k5_checks()
+            print(f"  {'K4' if rev else 'K3, K4'}, K6 "
+                  f"{'reverse' if rev else 'forward'} specs of a real "
+                  f"candidate stage: {n} rows equal (K6: keys)")
+
+    # -- K3 --------------------------------------------------------------
+
+    def k3_neat1(self) -> None:
+        """K3 against its plain version on a NEAT1-length query, every width
+        class: the score table far past MEG3's rows, row indices past
+        2**14."""
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.window import (window_fwd,
+                                                    window_pass_ref)
+
+        eng = self.engine(self.dna(NEAT1_M))
+        rows = 255  # odd: the last pair has one window
+        for lo, hi, W in ((1, 64, 64), (65, 128, 128), (129, 256, 256)):
+            rl = self.rng.integers(lo, hi + 1, rows).astype(np.int32)
+            codes = self.rng.integers(0, 5, (rows, W)).astype(np.uint8)
+            codes[np.arange(W)[None, :] >= rl[:, None]] = 4
+            codes_d = torch.from_numpy(codes).to(self.dev)
+            rl_d = torch.from_numpy(rl).to(self.dev)
+            full = lambda v: torch.full((rows,), v, dtype=torch.int32,
+                                        device=self.dev)
+            qp = eng._dev["qwin_fwd"]
+            want = window_pass_ref(codes_d, qp, full(0), full(-1), rl_d,
+                                   full(eng.m16), eng.m)
+            self.compare("window_fwd", window_fwd(
+                codes_d, qp, rl_d, eng.m, eng.m16, eng._dev["wtab_fwd"]),
+                want, f"NEAT1-length rlens {lo}..{hi}")
+            print(f"  K3 NEAT1-length query (m={eng.m}), rlens {lo}..{hi} "
+                  f"(W={W}): {rows} rows equal, max end_row "
+                  f"{int(want[want[:, 0] > 0, 2].max())}")
+
+    def k3_gate(self) -> None:
+        """The engine's K3 gate: uniform forward specs go to K3 at m =
+        K3_MAX_M and to K4 one query row past it, both equal to the plain
+        version."""
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.window import (K3_MAX_M, both_strands,
+                                                    gather_window_codes,
+                                                    window_pass_ref)
+
+        segs, lens = self.batch([self.dna(3000) for _ in range(4)], 3072)
+        segs_d = torch.from_numpy(segs).to(self.dev)
+        lens_d = torch.from_numpy(lens).to(self.dev)
+        rows = 200
+        rl = self.rng.integers(10, 65, rows).astype(np.int32)
+        seg_idx = self.rng.integers(0, len(lens), rows).astype(np.int32)
+        base = np.array([self.rng.integers(0, lens[i] - r + 1)
+                         for i, r in zip(seg_idx, rl)], np.int32)
+        scan_idx = self.rng.integers(0, 48, rows).astype(np.int32)
+        for m, want_k in ((K3_MAX_M, "window_fwd"),
+                          (K3_MAX_M + 1, "window_general")):
+            eng = self.engine(self.dna(m))
+            spec = {"seg_idx": seg_idx, "scan_idx": scan_idx, "base": base,
+                    "dirn": np.ones(rows, np.int32), "rlens": rl,
+                    "offs": np.zeros(rows, np.int32),
+                    "terms": np.full(rows, -1, np.int32),
+                    "mreals": np.full(rows, eng.m16, np.int32)}
+            self.reset_counts()
+            got = eng.window_pass_specs(segs, lens, spec, rev=False)
+            torch.cuda.synchronize()
+            counts = self.read_counts()
+            require(counts[want_k] == 1 and sum(counts.values()) == 1,
+                    f"K3 gate, m={m}: launches {counts}, want {want_k}")
+            d = eng._dev
+            cols = [torch.from_numpy(a).to(self.dev) for a in (
+                seg_idx, scan_idx, base, spec["dirn"], rl)]
+            codes = gather_window_codes(both_strands(segs_d, lens_d),
+                                        *segs.shape, d["lut_s"], d["is_tr"],
+                                        *cols, 64)
+            full = lambda v: torch.full((rows,), v, dtype=torch.int32,
+                                        device=self.dev)
+            want = window_pass_ref(codes, d["qwin_fwd"], full(0), full(-1),
+                                   cols[4], full(eng.m16), eng.m)
+            self.compare(want_k, torch.from_numpy(got).to(self.dev), want,
+                         f"K3 gate m={m}")
+            print(f"  K3 gate, m={m}: uniform forward specs on {want_k} "
+                  f"only, {rows} rows equal")
 
     # -- K6 --------------------------------------------------------------
 
@@ -767,21 +890,21 @@ class Smoke:
             qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
             m, m16 = self.cap_eng.m, self.cap_eng.m16
 
-            def run(plain, parts=parts, qp=qp, rev=rev):
-                for _, codes, part in parts:
-                    if plain:
-                        window_pass_ref(codes, qp, part["offs"],
-                                        part["terms"], part["rlens"],
-                                        part["mreals"], m)
-                    elif rev:
-                        window_general(codes, qp, part["offs"],
-                                       part["terms"], part["rlens"],
-                                       part["mreals"], m)
-                    else:
-                        window_fwd(codes, qp, part["rlens"], m, m16)
+            tab = self.cap_eng._dev["wtab_fwd"]
 
-            self.ms[kernel] = self.cuda_ms(lambda: run(False), 5)
-            self.plain_ms[kernel] = self.cuda_ms(lambda: run(True), 1,
+            def run(how, parts=parts, qp=qp, tab=tab):
+                for _, codes, part in parts:
+                    args = (codes, qp, part["offs"], part["terms"],
+                            part["rlens"], part["mreals"], m)
+                    if how == "plain":
+                        window_pass_ref(*args)
+                    elif how == "window_general":
+                        window_general(*args)
+                    else:
+                        window_fwd(codes, qp, part["rlens"], m, m16, tab)
+
+            self.ms[kernel] = self.cuda_ms(lambda: run(kernel), 5)
+            self.plain_ms[kernel] = self.cuda_ms(lambda: run("plain"), 1,
                                                  warm=False)
             # the rows each window needs: [off, max(mreal, m)) x rlen
             rl = spec["rlens"].astype(np.int64)
@@ -797,6 +920,22 @@ class Smoke:
                   f"of {rows} rows (rows per width {widths}), "
                   f"m={m}: kernel {self.ms[kernel]:.3f} ms, plain "
                   f"{self.plain_ms[kernel]:.3f} ms")
+            if not rev:
+                # the same specs (off 0, terms -1, mreals m16) on K4: the
+                # int32 layout K3 had before window_fwd.cu
+                old_ms = self.cuda_ms(lambda: run("window_general"), 5)
+                wide_ms = self.cuda_ms(self.k3_all_wide(parts, tab, m, m16),
+                                       5)
+                print(f"  K3 window_fwd {self.ms[kernel]:.3f} ms against "
+                      f"the int32 layout (window_general, uniform specs) "
+                      f"{old_ms:.3f} ms on the same dispatch; K3 with "
+                      f"every window at 64+ columns (no 32-column layout) "
+                      f"{wide_ms:.3f} ms")
+                edges = (0, 16, 32, 48, 64, 128, 256)
+                hist = np.histogram(rl, bins=edges)[0]
+                print("  rlen histogram of the forward dispatch: " + ", ".join(
+                    f"({a}, {b}] {int(n)}" for a, b, n in zip(
+                        edges, edges[1:], hist)))
             # K6 on the same dispatch, in the v1 rows
             k6 = [v1_rows(c, p["offs"], p["mreals"]) for _, c, p in parts]
             qc = self.cap_eng._qcodes(rev)
@@ -819,6 +958,38 @@ class Smoke:
         self.plain_ms["window_keys"] = sum(k6_plain)
         self.work["window_keys"] = (k6_ops, k6_bytes)
         self.k5_times()
+        for name, regs in ptxas_registers().items():
+            if "window" in name:
+                print(f"  ptxas registers {name}: {regs}")
+
+    def k3_all_wide(self, parts, tab, m: int, m16: int):
+        """A callable that runs K3 over a dispatch's width classes with the
+        64-column rows in their own order and none at 32 columns (the
+        kernel entry with n_first = 0), for the layout A/B."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels import _build
+
+        lib = _build.lib()
+        calls = []
+        for W, codes, part in parts:
+            r = codes.shape[0]
+            order = torch.arange(r, dtype=torch.int32, device=self.dev) \
+                if W == 64 else None
+            n0 = torch.zeros(1, dtype=torch.int32, device=self.dev) \
+                if W == 64 else None
+            out = torch.empty(r, 3, dtype=torch.int32, device=self.dev)
+            calls.append((codes.data_ptr(), W, tab.data_ptr(),
+                          part["rlens"].data_ptr(),
+                          None if order is None else order.data_ptr(),
+                          None if n0 is None else n0.data_ptr(), r, m, m16,
+                          out.data_ptr(), _build.stream_of(codes),
+                          order, n0, out))  # the last three keep them alive
+
+        def run():
+            for c in calls:
+                _build.check(lib.fasim_window_fwd(*c[:11]),
+                             "fasim_window_fwd")
+        return run
 
     def k5_times(self) -> None:
         """K5 at the per-segment shape (both alphabets; the ssw pass is the

@@ -1,19 +1,18 @@
-// K3 window_fwd and K4 window_general: batched candidate-window passes,
-// each returning the scan-order ends (best, end_col, end_row) of one
-// affine-gap Smith-Waterman pass of the query against one window row.
+// K4 window_general: the batched candidate-window pass with per-row
+// offsets, phantom bounds and terminate scores, returning the scan-order
+// ends (best, end_col, end_row) of one affine-gap Smith-Waterman pass of
+// the query against one window row.
 //
-// Replace fasim_tpu/kernels/tpu.py:_wfwd_kernel (K3, pallas_call in
-// _wfwd_call, ends in _ends_from_lane_keys) and _wscan_kernel (K4,
-// pallas_call in _wscan_call, ends in _ends_from_stats).  Contract
+// Replaces fasim_tpu/kernels/tpu.py:_wscan_kernel (pallas_call in
+// _wscan_call, ends in _ends_from_stats).  Contract
 // (kernels/xla.py:window_pass_xla): s = hi if code == q else lo on query
 // rows off <= i < m, 0 elsewhere (zero-profile prefix and phantom rows);
 // the column max runs over rows < mreal; end_row is the lowest row in
 // [off, m) attaining the max of the end column; end_col is the first
 // column < rlen attaining the best; under terms >= 0 the columns after
 // the first one whose max equals terms are cut off (sswNew.cpp:617); a
-// best <= 0 gives (0, -1, m - 1).  K3 is the instantiation with off = 0,
-// mreal = m16 and no terms for every row (the uniform forward specs); K4
-// reads them per row.
+// best <= 0 gives (0, -1, m - 1).  K3 (window_fwd.cu) is the uniform
+// forward case off = 0, mreal = m16, no terms, in 16-bit cells.
 //
 // What bounds it on this card: int32 ALU throughput, ~18 ops per cell and no
 // memory traffic beyond the window codes and the query row (L1 hits).
@@ -40,7 +39,7 @@ constexpr int kNeg = -(1 << 30);
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int C, bool kUniform>
+template <int C>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 window_ends_kernel(const uint8_t* __restrict__ codes,
                    const int32_t* __restrict__ qp, int qp_stride,
@@ -48,13 +47,13 @@ window_ends_kernel(const uint8_t* __restrict__ codes,
                    const int32_t* __restrict__ mreals,
                    const int32_t* __restrict__ terms,
                    const int32_t* __restrict__ rlens, int rows, int m,
-                   int m16, int32_t* __restrict__ out) {
+                   int32_t* __restrict__ out) {
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= rows) return;  // whole warps leave together
-  const int off = kUniform ? 0 : offs[row];
-  const int mreal = kUniform ? m16 : mreals[row];
-  const int term = kUniform ? -1 : terms[row];
+  const int off = offs[row];
+  const int mreal = mreals[row];
+  const int term = terms[row];
   const int rlen = rlens[row];
   // rows past the query's row count (the engine keeps mreal <= m + 15
   // within it) would read past the rows; bound the sweep there
@@ -144,11 +143,9 @@ window_ends_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-template <bool kUniform>
 int launch(const void* codes, int Wp, const void* qp, int qp_stride,
            const void* offs, const void* mreals, const void* terms,
-           const void* rlens, int rows, int m, int m16, void* out,
-           void* stream) {
+           const void* rlens, int rows, int m, void* out, void* stream) {
   if (rows <= 0) return 0;
   const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(kWarp * kWarpsPerBlock);
@@ -162,16 +159,16 @@ int launch(const void* codes, int Wp, const void* qp, int qp_stride,
   auto dst = static_cast<int32_t*>(out);
   switch (Wp) {
     case 64:
-      window_ends_kernel<2, kUniform><<<grid, block, 0, st>>>(
-          c, q, qp_stride, o, mr, te, rl, rows, m, m16, dst);
+      window_ends_kernel<2><<<grid, block, 0, st>>>(
+          c, q, qp_stride, o, mr, te, rl, rows, m, dst);
       break;
     case 128:
-      window_ends_kernel<4, kUniform><<<grid, block, 0, st>>>(
-          c, q, qp_stride, o, mr, te, rl, rows, m, m16, dst);
+      window_ends_kernel<4><<<grid, block, 0, st>>>(
+          c, q, qp_stride, o, mr, te, rl, rows, m, dst);
       break;
     case 256:
-      window_ends_kernel<8, kUniform><<<grid, block, 0, st>>>(
-          c, q, qp_stride, o, mr, te, rl, rows, m, m16, dst);
+      window_ends_kernel<8><<<grid, block, 0, st>>>(
+          c, q, qp_stride, o, mr, te, rl, rows, m, dst);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -184,21 +181,14 @@ int launch(const void* codes, int Wp, const void* qp, int qp_stride,
 extern "C" {
 
 // codes uint8[rows, Wp] (Wp in {64, 128, 256}); qp int32[3, qp_stride]
-// window query rows (q, hi, lo); rlens int32[rows]; out int32[rows, 3].
-int fasim_window_fwd(const void* codes, int Wp, const void* qp,
-                     int qp_stride, const void* rlens, int rows, int m,
-                     int m16, void* out, void* stream) {
-  return launch<true>(codes, Wp, qp, qp_stride, nullptr, nullptr, nullptr,
-                      rlens, rows, m, m16, out, stream);
-}
-
-// As fasim_window_fwd, with per-row offs, mreals and terms (int32[rows]).
+// window query rows (q, hi, lo); offs, mreals, terms and rlens
+// int32[rows]; out int32[rows, 3].
 int fasim_window_general(const void* codes, int Wp, const void* qp,
                          int qp_stride, const void* offs, const void* mreals,
                          const void* terms, const void* rlens, int rows,
                          int m, void* out, void* stream) {
-  return launch<false>(codes, Wp, qp, qp_stride, offs, mreals, terms, rlens,
-                       rows, m, 0, out, stream);
+  return launch(codes, Wp, qp, qp_stride, offs, mreals, terms, rlens, rows,
+                m, out, stream);
 }
 
 }  // extern "C"

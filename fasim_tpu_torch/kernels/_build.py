@@ -41,7 +41,7 @@ SIGNATURES = {
                             _I, _P, _P, _P, _P],
     "fasim_scan_strip_rows": [],
     "fasim_scan_codes_colmax": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-    "fasim_window_fwd": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+    "fasim_window_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                              _P],
     "fasim_window_keys": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],

@@ -16,6 +16,9 @@ engine itself with the `numpy_engine` contract (`__call__`, built on
   * qwin_fwd / qwin_rev int32[3, mpw]: the window query rows (K3, K4;
     row 0 holds the query codes K6 streams).
 
+Derived from qwin_fwd whenever it is set, and kept on the device only:
+wtab_fwd int8[mpw, 8], K3's per-row score table (`score_table`).
+
 The engine runs on cuda:0 unless constructed with device="cpu".  On a
 CUDA device every device pass is a hand-written kernel; on the CPU the
 wrappers take the kernels' plain PyTorch versions.
@@ -24,7 +27,8 @@ The switches of fasim_tpu's TpuScanEngine are read where it reads them:
 FASIM_SCAN16=1 (at construction) runs the scan passes inside the int16
 gate on K7; FASIM_WIN_V1=1 (at setup_windows) runs every window pass on
 K6; FASIM_WIN_V3=0 (at setup_windows) sends the uniform forward specs to
-K4 instead of K3.
+K4 instead of K3.  Queries longer than K3_MAX_M rows send them to K4 too
+(K3 keeps row indices in 16 bits).
 """
 
 from __future__ import annotations
@@ -41,8 +45,9 @@ from .pack import pack_candidates
 from .scan import (N_BASE, PURE, PURE_OR_PAD, decode_bases, make_lut6,
                    make_qp2, reverse_prefix, scan_colmax, scan_colmax16)
 from .scan_codes import apply_byte_break, make_qprops, scan_codes_colmax
-from .window import (WIDTHS, both_strands, gather_window_codes,
-                     width_class, window_fwd, window_general, window_qp)
+from .window import (K3_MAX_M, WIDTHS, both_strands, gather_window_codes,
+                     score_table, width_class, window_fwd, window_general,
+                     window_qp)
 from .window_v1 import query_rows, v1_ends
 
 SPEC_KEYS = ("seg_idx", "scan_idx", "base", "dirn", "rlens", "offs",
@@ -100,6 +105,8 @@ class TorchScanEngine:
             arr = np.ascontiguousarray(arr, STATE_DTYPES[key])
             self._host[key] = arr
             self._dev[key] = torch.from_numpy(arr.copy()).to(self.device)
+        if "qwin_fwd" in tables:
+            self._dev["wtab_fwd"] = score_table(self._dev["qwin_fwd"])
 
     def state(self) -> dict[str, np.ndarray]:
         """Copies of the engine's tables (numpy)."""
@@ -314,12 +321,14 @@ class TorchScanEngine:
         [rows, 3] (best, end_col, end_row).  Windows are gathered on the
         device from the batch's segments and the scan LUTs.  Uniform
         forward specs go to K3 (to K4 under FASIM_WIN_V3=0), everything
-        else to K4; under FASIM_WIN_V1=1 every spec goes to K6."""
+        else to K4 (so do they for a query longer than K3_MAX_M); under
+        FASIM_WIN_V1=1 every spec goes to K6."""
         rows = len(spec["seg_idx"])
         if rows == 0:
             return np.zeros((0, 3), np.int32)
         cols = {k: np.asarray(spec[k]) for k in SPEC_KEYS}
-        uniform = (self.win_v3 and not rev and (cols["offs"] == 0).all()
+        uniform = (self.win_v3 and not rev and self.m <= K3_MAX_M
+                   and (cols["offs"] == 0).all()
                    and (cols["terms"] == -1).all()
                    and (cols["mreals"] == self.m16).all()
                    and (cols["dirn"] == 1).all())
@@ -348,7 +357,7 @@ class TorchScanEngine:
                                self.m)
             elif uniform:
                 ends = window_fwd(codes, qp, part["rlens"], self.m,
-                                  self.m16)
+                                  self.m16, d["wtab_fwd"])
             else:
                 ends = window_general(codes, qp, part["offs"],
                                       part["terms"], part["rlens"],

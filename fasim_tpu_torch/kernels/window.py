@@ -3,13 +3,15 @@
 Replace fasim_tpu/kernels/tpu.py:_wfwd_kernel (K3: the uniform forward
 specs — off 0, mreal m16, no terms, dirn +1) and _wscan_kernel (K4:
 per-row offs, mreals, terms, dirn +-1) together with their ends
-reductions (_ends_from_lane_keys, _ends_from_stats).  Both kernels are
-instantiations of csrc/window.cu (its header says what bounds them on the
-card and how the design meets that) and return the ends int32[rows, 3]
+reductions (_ends_from_lane_keys, _ends_from_stats).  K3 is
+csrc/window_fwd.cu (two windows per register in 16-bit cells), K4
+csrc/window.cu (int32 cells); their headers say what bounds them on the
+card and how the designs meet that.  Both return the ends int32[rows, 3]
 = (best, end_col, end_row) directly.  `window_pass_ref` is their plain
 PyTorch version, ported from kernels/xla.py:window_pass_xla.
 
-Also here: the window query rows (`window_qp`, xla.py:_window_qp) and the
+Also here: the window query rows (`window_qp`, xla.py:_window_qp), K3's
+per-row score table (`score_table`) and row order (`pair_order`), and the
 device-side window gather (`gather_window_codes`, the gather of
 tpu.py:_wspecs_call / _wspecs_fwd_call and xla.py:build_window_codes).
 """
@@ -28,8 +30,14 @@ from .scan import reverse_prefix
 _NEG = -(2 ** 30)
 _BIG = 1 << 30
 
-# kernel widths: a warp's 32 lanes own 2, 4 or 8 window columns each
+# kernel widths (window_fwd.cu and window.cu lay out each in its own way)
 WIDTHS = (64, 128, 256)
+# K3 keeps a column's lowest attaining row in 16 bits: query rows < 2**16
+K3_MAX_M = 1 << 16
+# K3 runs the 64-column windows with rlen <= 32 at 32 columns
+NARROW = 32
+# K3's table holds score + 16, so that H - 16 is the diagonal operand
+TABLE_BIAS = 16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,6 +67,26 @@ def window_qp(rna: np.ndarray) -> np.ndarray:
     qp[1, :m] = np.where(q < 4, 5, -4)
     qp[2, :m] = -4
     return qp
+
+
+def score_table(qp: torch.Tensor) -> torch.Tensor:
+    """K3's per-row score table int8[Mp, 8] from the window query rows
+    int32[3, Mp]: byte c of row i is s(c, i) + TABLE_BIAS, s(c, i) = hi if
+    c == q else lo (codes 0..7; the phantom rows are 0 + TABLE_BIAS)."""
+    c = torch.arange(8, dtype=torch.int32, device=qp.device)
+    s = torch.where(c[None, :] == qp[0][:, None], qp[1][:, None],
+                    qp[2][:, None])
+    return (s + TABLE_BIAS).to(torch.int8).contiguous()
+
+
+def pair_order(rlens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's row order for a 64-column dispatch: (order int32[rows], the
+    windows with rlen <= NARROW first and then the others, each in their
+    own order; their count int32[1]).  The kernel pairs order[2p] and
+    order[2p + 1]; all on the device, with no host round trip."""
+    wide = rlens > NARROW
+    order = torch.argsort(wide.to(torch.uint8), stable=True)
+    return order.to(torch.int32), (~wide).sum(dtype=torch.int32).reshape(1)
 
 
 def both_strands(segs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -150,10 +178,13 @@ def _check(name: str, codes: torch.Tensor, qp: torch.Tensor, rows: dict):
 
 
 def window_fwd(codes: torch.Tensor, qp: torch.Tensor, rlens: torch.Tensor,
-               m: int, m16: int) -> torch.Tensor:
+               m: int, m16: int, tab: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """K3: ends int32[rows, 3] of the uniform forward pass (off 0, mreal
     m16, no terms).  CPU tensors take `window_pass_ref`; CUDA tensors
-    launch the kernel (counted in `window_fwd.launches`)."""
+    launch the kernel (counted in `window_fwd.launches`), which reads the
+    query through `tab` = score_table(qp) (the engine keeps it) and takes
+    m <= K3_MAX_M."""
     rows = codes.shape[0]
     if codes.device.type == "cpu":
         def fill(v):
@@ -164,15 +195,24 @@ def window_fwd(codes: torch.Tensor, qp: torch.Tensor, rlens: torch.Tensor,
     if codes.device.type != "cuda":
         raise ValueError(f"window_fwd: unsupported device {codes.device}")
     _check("window_fwd", codes, qp, {"rlens": rlens})
-    if m16 > qp.shape[1]:
-        raise ValueError("window_fwd: m16 exceeds the query rows")
+    if m > K3_MAX_M:
+        raise ValueError(f"window_fwd: m = {m} > {K3_MAX_M} (route to "
+                         "window_general)")
+    if tab is None or tab.device != codes.device or tab.dtype != torch.int8 \
+            or tab.dim() != 2 or tab.shape[1] != 8 \
+            or tab.shape[0] <= m16 or not tab.is_contiguous():
+        raise ValueError("window_fwd: tab must be contiguous int8[> m16, 8] "
+                         f"on {codes.device}")
+    order, n_first = pair_order(rlens) if codes.shape[1] == 64 \
+        else (None, None)
     out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
     lib = _build.lib()
     with torch.cuda.device(codes.device):
         err = lib.fasim_window_fwd(
-            codes.data_ptr(), codes.shape[1], qp.data_ptr(), qp.stride(0),
-            rlens.data_ptr(), rows, m, m16, out.data_ptr(),
-            _build.stream_of(codes))
+            codes.data_ptr(), codes.shape[1], tab.data_ptr(),
+            rlens.data_ptr(), None if order is None else order.data_ptr(),
+            None if n_first is None else n_first.data_ptr(), rows, m, m16,
+            out.data_ptr(), _build.stream_of(codes))
     _build.check(err, "fasim_window_fwd")
     _build.count_launch(window_fwd)
     return out

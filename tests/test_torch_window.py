@@ -9,6 +9,8 @@ Every output is int32 (best, end_col, end_row): the tolerance is 0.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from fasim_tpu import rules
 from fasim_tpu.config import GAP_EXTEND, GAP_OPEN
@@ -245,6 +247,12 @@ def test_routing_uniform_forward_to_k3(monkeypatch):
     calls.clear()
     port.window_pass_specs(segs, lens, spec, rev=True)
     assert set(calls) == {"window_general"}
+    # K3's shape gate: a query longer than K3_MAX_M rows takes K4
+    for limit, want in ((m, "window_fwd"), (m - 1, "window_general")):
+        monkeypatch.setattr(engine_mod, "K3_MAX_M", limit)
+        calls.clear()
+        port.window_pass_specs(segs, lens, spec, rev=False)
+        assert set(calls) == {want}, limit
 
 
 def test_align_chain_matches_align_window_py():
@@ -290,3 +298,137 @@ def test_window_kernels_reject_other_devices():
         window.window_fwd(codes, qp, rows, 10, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         window.window_general(codes, qp, rows, rows, rows, rows, 10)
+
+
+@pytest.mark.parametrize("m,want", [(window.K3_MAX_M, "window_fwd"),
+                                    (window.K3_MAX_M + 1, "window_general")])
+def test_k3_gate_at_its_query_length(m, want, monkeypatch):
+    """Uniform forward specs at the longest query K3 takes go to K3, one
+    row longer to K4; both equal XLA."""
+    calls = []
+    real = getattr(engine_mod, want)
+
+    def spy(*args):
+        calls.append(want)
+        return real(*args)
+
+    monkeypatch.setattr(engine_mod, want, spy)
+    rng = np.random.default_rng(m)
+    rna = _rna(rng, m)
+    scans = rules.scan_list(0, 0)
+    xla, port = _engines(rna, scans)
+    segs, lens = _segments(rng, [300, 200], 320)
+    spec = _fwd_spec(rng, 5, lens, len(scans), 10, 40, _ru(m, 16))
+    a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=False))
+    c = port.window_pass_specs(segs, lens, spec, rev=False)
+    np.testing.assert_array_equal(c, a)
+    assert calls == [want]
+
+
+def test_score_table_matches_window_qp():
+    """K3's table: byte c of row i is XLA's window score of code c on query
+    row i, plus TABLE_BIAS, for every code a byte selector can reach
+    (0..7) and every row incl. the phantom ones; the engine keeps it in
+    step with qwin_fwd, also through load_state."""
+    rng = np.random.default_rng(3)
+    rna = np.frombuffer(b"ACGTUN", np.uint8)[rng.integers(0, 6, 101)]
+    qp = _window_qp(rna)
+    want = np.where(np.arange(8)[None, :] == qp[0][:, None],
+                    qp[1][:, None], qp[2][:, None]) + window.TABLE_BIAS
+    tab = window.score_table(torch.from_numpy(window.window_qp(rna)))
+    assert tab.dtype == torch.int8 and tab.shape == (qp.shape[1], 8)
+    np.testing.assert_array_equal(tab.numpy(), want)
+    port = TorchScanEngine(rna, device="cpu")
+    port.setup_windows(rna)
+    np.testing.assert_array_equal(port._dev["wtab_fwd"].numpy(), want)
+    other = rna[::-1].copy()
+    port.load_state({"qwin_fwd": _window_qp(other)})
+    np.testing.assert_array_equal(
+        port._dev["wtab_fwd"].numpy(),
+        window.score_table(torch.from_numpy(_window_qp(other))).numpy())
+
+
+def _prmt(a: int, b: int, sel: int) -> int:
+    """PTX prmt.b32 (default mode): byte k of the result is byte (s & 7)
+    of the pair (b:a), or its sign replicated when s & 8, s the k-th
+    nibble of sel."""
+    src = (b << 32) | a
+    out = 0
+    for k in range(4):
+        s = (sel >> (4 * k)) & 15
+        byte = (src >> (8 * (s & 7))) & 0xFF
+        if s & 8:
+            byte = 0xFF if byte & 0x80 else 0
+        out |= byte << (8 * k)
+    return out
+
+
+def test_selector_unpacks_both_windows_scores():
+    """Round trip of window_fwd.cu's score lookup: the selector of two
+    window codes (ca, cb) = ca | (ca | 8) << 4 | cb << 8 | (cb | 8) << 12,
+    applied by prmt to a row's two table words, gives window A's score
+    + TABLE_BIAS sign-extended in the low int16 and window B's in the
+    high one, for every pair of codes and every kind of query row."""
+    rna = np.frombuffer(b"ACGTN", np.uint8).copy()  # q = 0..4, then phantom
+    tab = window.score_table(torch.from_numpy(window.window_qp(rna)))
+    words = tab.numpy().view(np.uint32)  # [Mp, 2]: codes 0..3, 4..7
+    qp = window.window_qp(rna)
+    for i in range(len(rna) + 2):
+        lo, hi = int(words[i, 0]), int(words[i, 1])
+        for ca in range(5):
+            for cb in range(5):
+                sel = ca | (ca | 8) << 4 | cb << 8 | (cb | 8) << 12
+                got = _prmt(lo, hi, sel)
+                halves = [((got >> sh) & 0xFFFF) for sh in (0, 16)]
+                halves = [h - 0x10000 if h & 0x8000 else h for h in halves]
+                want = [(qp[1, i] if c == qp[0, i] else qp[2, i])
+                        + window.TABLE_BIAS for c in (ca, cb)]
+                assert halves == want, (i, ca, cb)
+
+
+@pytest.mark.parametrize("rlens", [
+    [40, 3, 64, 32, 33, 1, 17, 50, 32, 7, 64],  # mixed, odd count
+    [5, 32, 9],  # all at 32 columns
+    [33, 64],  # none
+])
+def test_pair_order_round_trip(rlens):
+    """K3's 64-column row order: a permutation that puts the rows with
+    rlen <= NARROW first, each part in its original order, with their
+    count."""
+    rl = torch.tensor(rlens, dtype=torch.int32)
+    order, n = window.pair_order(rl)
+    assert order.dtype == torch.int32 and n.dtype == torch.int32
+    o = order.numpy()
+    narrow = [i for i, r in enumerate(rlens) if r <= window.NARROW]
+    wide = [i for i, r in enumerate(rlens) if r > window.NARROW]
+    assert n.tolist() == [len(narrow)]
+    assert o.tolist() == narrow + wide
+    assert sorted(o.tolist()) == list(range(len(rlens)))
+
+
+@settings(max_examples=30, deadline=None)
+@given(m=st.integers(1, 90), rows=st.integers(1, 4),
+       width=st.sampled_from([64, 128]), seed=st.integers(0, 2 ** 32 - 1),
+       match_run=st.booleans())
+def test_window_best_fits_int16(m, rows, width, seed, match_run):
+    """The bound K3's 16-bit cells rest on: a window pass's best is at most
+    5 * min(rlen, m) (every cell of a path scores <= 5), so <= 1,280 for
+    any query, within int16."""
+    rng = np.random.default_rng(seed)
+    rna = _rna(rng, m)
+    q = rules.SSW_ENC[rna]
+    codes = rng.integers(0, 5, (rows, width)).astype(np.uint8)
+    if match_run:  # windows that copy the query score as high as it goes
+        n = min(m, width)
+        codes[:, :n] = q[:n]
+    rlens = rng.integers(1, width + 1, rows).astype(np.int32)
+    qp = torch.from_numpy(window.window_qp(rna))
+    m16 = _ru(m, 16)
+
+    def fill(v):
+        return torch.full((rows,), v, dtype=torch.int32)
+
+    ends = window.window_pass_ref(torch.from_numpy(codes), qp, fill(0),
+                                  fill(-1), torch.from_numpy(rlens),
+                                  fill(m16), m).numpy()
+    assert (ends[:, 0] <= 5 * np.minimum(rlens, m)).all()
