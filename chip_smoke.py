@@ -79,18 +79,21 @@ def ops_per_cell(kernel: str, m16: int) -> float:
     """The least integer operations one DP cell needs on sm_90, each
     counted at the INT32 rate (fewer than the kernels execute).
 
-    The recurrence takes 7: the score 1 (one PRMT of a per-row byte table
-    by the column's code gives the sign-extended score in either
+    A scan's recurrence takes 7: the score 1 (one PRMT of a per-row byte
+    table by the column's code gives the sign-extended score in either
     alphabet), H - 16 once for both gaps 1, E and F one __viaddmax each,
     H 2 (__viaddmax_relu of diag + s and E, then max with F), the column
     max 1.  Where every H fits in 16 bits the two-lane s16x2 forms do two
     cells per operation: 3.5.  A scan's H lies in [0, 5 * m16], so the
-    scans take 3.5 only while 5 * m16 <= 32767; a window's H is at most
+    scans take 3.5 only while 5 * m16 <= 32767.  A window's H is at most
     5 * min(m, 256) <= 1,280 at any query length, so the window kernels
-    always do, and add 2 for each column's (max, lowest row), one max over
-    a 32-bit key max * 2048 + (2047 - row): 5.5."""
+    always take the s16x2 forms, and they need no separate column max:
+    each column's (max, lowest row) is one max over a 32-bit key
+    (H << 16) | (0xFFFF - row) built by one PRMT, 2 a cell (on the
+    phantom rows m..m16-1 a packed max alone, fewer).  So 6 / 2 + 2 = 5
+    at every query length."""
     if kernel.startswith("window"):
-        return 7 / 2 + 2
+        return 6 / 2 + 2
     return 7 / 2 if 5 * m16 <= 32767 else 7
 
 
@@ -410,8 +413,8 @@ class Smoke:
             codes = gather_window_codes(both, S, N, d["lut_s"], d["is_tr"],
                                         *spec, W)
             qp = d["qwin_fwd"]
-            got = window_fwd(codes, qp, spec[4], eng.m, eng.m16,
-                             d["wtab_fwd"])
+            got = window_fwd(codes, qp, d["wtab_fwd"], spec[4], eng.m,
+                             eng.m16)
             full = lambda v: torch.full((rows,), v, dtype=torch.int32,
                                         device=self.dev)
             want = window_pass_ref(codes, qp, full(0), full(-1), spec[4],
@@ -447,10 +450,9 @@ class Smoke:
                                  f"W={W}")
                     if not rev:  # the production forward specs are K3's
                         self.compare("window_fwd", window_fwd(
-                            codes, qp, part["rlens"], self.cap_eng.m,
-                            self.cap_eng.m16,
-                            self.cap_eng._dev["wtab_fwd"]), want,
-                            f"fwd specs W={W}")
+                            codes, qp, self.cap_eng._dev["wtab_fwd"],
+                            part["rlens"], self.cap_eng.m,
+                            self.cap_eng.m16), want, f"fwd specs W={W}")
                     n += codes.shape[0]
                     self.k6_compare(codes, part["offs"], part["mreals"],
                                     self.cap_eng, rev, f"specs W={W}")
@@ -483,7 +485,7 @@ class Smoke:
             want = window_pass_ref(codes_d, qp, full(0), full(-1), rl_d,
                                    full(eng.m16), eng.m)
             self.compare("window_fwd", window_fwd(
-                codes_d, qp, rl_d, eng.m, eng.m16, eng._dev["wtab_fwd"]),
+                codes_d, qp, eng._dev["wtab_fwd"], rl_d, eng.m, eng.m16),
                 want, f"NEAT1-length rlens {lo}..{hi}")
             print(f"  K3 NEAT1-length query (m={eng.m}), rlens {lo}..{hi} "
                   f"(W={W}): {rows} rows equal, max end_row "
@@ -888,9 +890,8 @@ class Smoke:
                                           key=lambda c: len(c[2]["rlens"]))
             parts = self.spec_codes(segs_c, lens_c, spec, rev)
             qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
-            m, m16 = self.cap_eng.m, self.cap_eng.m16
-
             tab = self.cap_eng._dev["wtab_fwd"]
+            m, m16 = self.cap_eng.m, self.cap_eng.m16
 
             def run(how, parts=parts, qp=qp, tab=tab):
                 for _, codes, part in parts:
@@ -901,7 +902,7 @@ class Smoke:
                     elif how == "window_general":
                         window_general(*args)
                     else:
-                        window_fwd(codes, qp, part["rlens"], m, m16, tab)
+                        window_fwd(codes, qp, tab, part["rlens"], m, m16)
 
             self.ms[kernel] = self.cuda_ms(lambda: run(kernel), 5)
             self.plain_ms[kernel] = self.cuda_ms(lambda: run("plain"), 1,
@@ -924,13 +925,9 @@ class Smoke:
                 # the same specs (off 0, terms -1, mreals m16) on K4: the
                 # int32 layout K3 had before window_fwd.cu
                 old_ms = self.cuda_ms(lambda: run("window_general"), 5)
-                wide_ms = self.cuda_ms(self.k3_all_wide(parts, tab, m, m16),
-                                       5)
                 print(f"  K3 window_fwd {self.ms[kernel]:.3f} ms against "
                       f"the int32 layout (window_general, uniform specs) "
-                      f"{old_ms:.3f} ms on the same dispatch; K3 with "
-                      f"every window at 64+ columns (no 32-column layout) "
-                      f"{wide_ms:.3f} ms")
+                      f"{old_ms:.3f} ms on the same dispatch")
                 edges = (0, 16, 32, 48, 64, 128, 256)
                 hist = np.histogram(rl, bins=edges)[0]
                 print("  rlen histogram of the forward dispatch: " + ", ".join(
@@ -961,35 +958,6 @@ class Smoke:
         for name, regs in ptxas_registers().items():
             if "window" in name:
                 print(f"  ptxas registers {name}: {regs}")
-
-    def k3_all_wide(self, parts, tab, m: int, m16: int):
-        """A callable that runs K3 over a dispatch's width classes with the
-        64-column rows in their own order and none at 32 columns (the
-        kernel entry with n_first = 0), for the layout A/B."""
-        torch = self.torch
-        from fasim_tpu_torch.kernels import _build
-
-        lib = _build.lib()
-        calls = []
-        for W, codes, part in parts:
-            r = codes.shape[0]
-            order = torch.arange(r, dtype=torch.int32, device=self.dev) \
-                if W == 64 else None
-            n0 = torch.zeros(1, dtype=torch.int32, device=self.dev) \
-                if W == 64 else None
-            out = torch.empty(r, 3, dtype=torch.int32, device=self.dev)
-            calls.append((codes.data_ptr(), W, tab.data_ptr(),
-                          part["rlens"].data_ptr(),
-                          None if order is None else order.data_ptr(),
-                          None if n0 is None else n0.data_ptr(), r, m, m16,
-                          out.data_ptr(), _build.stream_of(codes),
-                          order, n0, out))  # the last three keep them alive
-
-        def run():
-            for c in calls:
-                _build.check(lib.fasim_window_fwd(*c[:11]),
-                             "fasim_window_fwd")
-        return run
 
     def k5_times(self) -> None:
         """K5 at the per-segment shape (both alphabets; the ssw pass is the

@@ -356,8 +356,8 @@ class TorchScanEngine:
                                part["terms"], part["rlens"], part["mreals"],
                                self.m)
             elif uniform:
-                ends = window_fwd(codes, qp, part["rlens"], self.m,
-                                  self.m16, d["wtab_fwd"])
+                ends = window_fwd(codes, qp, d["wtab_fwd"], part["rlens"],
+                                  self.m, self.m16)
             else:
                 ends = window_general(codes, qp, part["offs"],
                                       part["terms"], part["rlens"],

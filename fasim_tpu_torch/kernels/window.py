@@ -177,14 +177,13 @@ def _check(name: str, codes: torch.Tensor, qp: torch.Tensor, rows: dict):
                              f" on {codes.device}")
 
 
-def window_fwd(codes: torch.Tensor, qp: torch.Tensor, rlens: torch.Tensor,
-               m: int, m16: int, tab: torch.Tensor | None = None
-               ) -> torch.Tensor:
+def window_fwd(codes: torch.Tensor, qp: torch.Tensor, tab: torch.Tensor,
+               rlens: torch.Tensor, m: int, m16: int) -> torch.Tensor:
     """K3: ends int32[rows, 3] of the uniform forward pass (off 0, mreal
-    m16, no terms).  CPU tensors take `window_pass_ref`; CUDA tensors
-    launch the kernel (counted in `window_fwd.launches`), which reads the
-    query through `tab` = score_table(qp) (the engine keeps it) and takes
-    m <= K3_MAX_M."""
+    m16, no terms).  qp is the window query rows, tab = score_table(qp)
+    (the engine keeps both).  CPU tensors take `window_pass_ref` on qp;
+    CUDA tensors launch the kernel (counted in `window_fwd.launches`),
+    which reads the query through tab and takes m <= K3_MAX_M."""
     rows = codes.shape[0]
     if codes.device.type == "cpu":
         def fill(v):
@@ -198,7 +197,7 @@ def window_fwd(codes: torch.Tensor, qp: torch.Tensor, rlens: torch.Tensor,
     if m > K3_MAX_M:
         raise ValueError(f"window_fwd: m = {m} > {K3_MAX_M} (route to "
                          "window_general)")
-    if tab is None or tab.device != codes.device or tab.dtype != torch.int8 \
+    if tab.device != codes.device or tab.dtype != torch.int8 \
             or tab.dim() != 2 or tab.shape[1] != 8 \
             or tab.shape[0] <= m16 or not tab.is_contiguous():
         raise ValueError("window_fwd: tab must be contiguous int8[> m16, 8] "

@@ -295,7 +295,8 @@ def test_window_kernels_reject_other_devices():
     qp = torch.zeros(3, 128, dtype=torch.int32, device=meta)
     rows = torch.zeros(2, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        window.window_fwd(codes, qp, rows, 10, 16)
+        window.window_fwd(codes, qp, torch.zeros(128, 8, dtype=torch.int8,
+                                                 device=meta), rows, 10, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         window.window_general(codes, qp, rows, rows, rows, rows, 10)
 
