@@ -19,8 +19,13 @@ Phases, each printing one line with its seconds:
      int16 gate, the full-prefix rerun), the candidate packing against
      its numpy mirror, K3 window_fwd on every width class (rlens of 32
      columns and fewer included), on a NEAT1-length query and on the
-     specs of a real candidate stage, the engine's K3 gate (K3 at m =
-     K3_MAX_M, K4 one row past it), K4 window_general on those specs, K6
+     specs of a real candidate stage, K4 window_general (16-bit cells)
+     and window_general32 (its int32 kernel for long queries) on every
+     width class with random offs, terms and mreals, pairs of shared and
+     of mismatched offsets, at MEG3 and NEAT1 length, and on the real
+     forward and reverse specs, the engine's gates (at m = K3_MAX_M
+     uniform forward specs on K3 and reverse specs on window_general,
+     one row past it both on window_general32), K6
      window_keys on every width class (two 64-column windows per row
      included) and on the same specs, K5 scan_codes_colmax (the
      per-segment shape in both alphabets, a packed batch, impure codes
@@ -35,18 +40,25 @@ Phases, each printing one line with its seconds:
      -F) through the port's CLI, h19_lg40 under FASIM_WIN_V3=0 (K4 for
      the forward specs, no K3), h19_lg40 through the batched driver with
      TorchScanEngine(use_v2=False) (K5), meg3_sub16 through the
-     per-segment path scan/pipeline.scan_file (K5), and meg3_full (MEG3
-     lncRNA x 1.32 Mb, 532 records) through the CLI, by default (K1, K3,
-     K4) and under FASIM_SCAN16=1 FASIM_WIN_V1=1 (K7, K6; no K1, K3 or
-     K4);
+     per-segment path scan/pipeline.scan_file (K5), neat1 (NEAT1,
+     22,767 nt), malat1 (MALAT1, 8,708 nt) and meg3_sub64 through the
+     CLI (K1, K3, K4), and meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records)
+     through the CLI, by default (K1, K3, K4) and under FASIM_SCAN16=1
+     FASIM_WIN_V1=1 (K7, K6; no K1, K3 or K4); no run launches K4's int32
+     kernel;
   5. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K7 at K1's shape, K6 on K3's
      forward and K4's reverse dispatch; on K3's dispatch also the int32
-     layout K3 had before, window_general with the uniform specs, and
-     the dispatch's rlen histogram), each kernel's bound: the larger of
+     layout K3 had before (window_general32 with the uniform specs), K4
+     on those specs, and the dispatch's rlen histogram; on K4's dispatch
+     K4's int32 kernel, each width class's time, bound and swept cells,
+     the histograms of the sweep spans and of the offset mismatches
+     within pairs), each kernel's bound: the larger of
      the least integer operations its cells need (ops_per_cell) over the
      card's int32 rate (SMs x 64 lanes x the max SM clock) and its bytes
-     over 3.35 TB/s, and the window kernels' ptxas registers.
+     over 3.35 TB/s, and the window kernels' ptxas registers;
+  6. trace   — one more default meg3_full run under torch.profiler: the
+     device time by kernel and copy, and their sum against the wall.
 
 Then one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
@@ -153,8 +165,10 @@ class Smoke:
                         "fasim_tpu/kernels/tpu.py:1364"),
         "window_fwd": ("fasim_tpu_torch/csrc/window_fwd.cu",
                        "fasim_tpu/kernels/tpu.py:1796"),
-        "window_general": ("fasim_tpu_torch/csrc/window.cu",
+        "window_general": ("fasim_tpu_torch/csrc/window_gen.cu",
                            "fasim_tpu/kernels/tpu.py:1529"),
+        "window_general32": ("fasim_tpu_torch/csrc/window.cu",
+                             "fasim_tpu/kernels/tpu.py:1529"),
         "scan_codes_colmax": ("fasim_tpu_torch/csrc/scan_codes.cu",
                               "fasim_tpu/kernels/tpu.py:154"),
     }
@@ -427,12 +441,15 @@ class Smoke:
             print(f"  K6 rlens {lo}..{hi} (W={W}): {n} kernel rows, keys "
                   "equal")
         self.k3_neat1()
-        self.k3_gate()
+        for m in (MEG3_M, NEAT1_M):
+            self.k4_checks(m)
+        self.gates()
 
     def spec_checks(self) -> None:
         """K4, K3 and K6 on the specs of a real candidate stage."""
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
+                                                    window_general32,
                                                     window_pass_ref)
 
         for rev in (False, True):
@@ -445,9 +462,13 @@ class Smoke:
                     args = (codes, qp, part["offs"], part["terms"],
                             part["rlens"], part["mreals"], self.cap_eng.m)
                     want = window_pass_ref(*args)
-                    self.compare("window_general", window_general(*args),
-                                 want, f"{'rev' if rev else 'fwd'} specs "
-                                 f"W={W}")
+                    what = f"{'rev' if rev else 'fwd'} specs W={W}"
+                    tab = self.cap_eng._dev["wtab_rev" if rev
+                                            else "wtab_fwd"]
+                    self.compare("window_general",
+                                 window_general(*args, tab), want, what)
+                    self.compare("window_general32",
+                                 window_general32(*args), want, what)
                     if not rev:  # the production forward specs are K3's
                         self.compare("window_fwd", window_fwd(
                             codes, qp, self.cap_eng._dev["wtab_fwd"],
@@ -456,7 +477,7 @@ class Smoke:
                     n += codes.shape[0]
                     self.k6_compare(codes, part["offs"], part["mreals"],
                                     self.cap_eng, rev, f"specs W={W}")
-            print(f"  {'K4' if rev else 'K3, K4'}, K6 "
+            print(f"  {'K4' if rev else 'K3, K4'} (both K4 kernels), K6 "
                   f"{'reverse' if rev else 'forward'} specs of a real "
                   f"candidate stage: {n} rows equal (K6: keys)")
 
@@ -491,10 +512,76 @@ class Smoke:
                   f"(W={W}): {rows} rows equal, max end_row "
                   f"{int(want[want[:, 0] > 0, 2].max())}")
 
-    def k3_gate(self) -> None:
-        """The engine's K3 gate: uniform forward specs go to K3 at m =
-        K3_MAX_M and to K4 one query row past it, both equal to the plain
-        version."""
+    # -- K4 --------------------------------------------------------------
+
+    def k4_checks(self, m: int) -> None:
+        """K4's 16-bit kernel and its int32 kernel against the plain version
+        on every width class, at query length m, on reverse-query rows with
+        random offs (half the windows copy the query from their offset on,
+        mutated), terms (none, or near the window's best: real cuts) and
+        mreals: once with few distinct offsets (pairs share their start
+        row) and mreals m..m+15, once with distinct offsets (every pair
+        mismatches) and mreals m-8..m+15."""
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.window import (window_general,
+                                                    window_general32,
+                                                    window_pass_ref)
+
+        eng = self.engine(self.dna(m))
+        d = eng._dev
+        q = d["qwin_rev"][0].cpu().numpy()
+        rows = 301  # odd: the last pair has one window
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                self.dev)
+
+        for lo, hi, W in ((1, 32, 64), (33, 64, 64), (1, 64, 64),
+                          (65, 128, 128), (129, 256, 256)):
+            for pairs in ("shared", "mismatched"):
+                rl = self.rng.integers(lo, hi + 1, rows)
+                if pairs == "shared":
+                    offs = self.rng.choice(self.rng.integers(0, m, 6), rows)
+                else:
+                    offs = self.rng.choice(m, rows, replace=False)
+                codes = self.rng.integers(0, 5, (rows, W)).astype(np.uint8)
+                for r in range(0, rows, 2):
+                    n = min(m - offs[r], rl[r])
+                    piece = q[offs[r]:offs[r] + n].copy()
+                    muts = self.rng.random(n) < 0.15
+                    piece[muts] = self.rng.integers(0, 5, int(muts.sum()))
+                    codes[r, :n] = piece
+                codes[np.arange(W)[None, :] >= rl[:, None]] = 4
+                codes_d = torch.from_numpy(codes).to(self.dev)
+                # mreals below m too, where the offsets mismatch
+                mreals = m + self.rng.integers(
+                    -8 if pairs == "mismatched" else 0, 16, rows)
+                free = window_pass_ref(codes_d, d["qwin_rev"], dev(offs),
+                                       dev(np.full(rows, -1)), dev(rl),
+                                       dev(mreals), m)[:, 0].cpu().numpy()
+                terms = np.where(self.rng.random(rows) < 0.5, -1,
+                                 np.maximum(free - self.rng.integers(
+                                     0, 3, rows), 0))
+                args = (codes_d, d["qwin_rev"], dev(offs), dev(terms),
+                        dev(rl), dev(mreals), m)
+                want = window_pass_ref(*args)
+                what = f"m={m} rlens {lo}..{hi} {pairs} offsets"
+                self.compare("window_general",
+                             window_general(*args, d["wtab_rev"]), want,
+                             what)
+                self.compare("window_general32", window_general32(*args),
+                             want, what)
+                print(f"  K4 (both kernels) {what} (W={W}): {rows} rows "
+                      f"equal, best max {int(want[:, 0].max())}, max "
+                      f"end_row {int(want[want[:, 0] > 0, 2].max())}")
+
+    def gates(self) -> None:
+        """The engine's 16-bit row gates: at m = K3_MAX_M uniform forward
+        specs go to K3 and reverse specs to K4's 16-bit kernel, one query
+        row longer both to K4's int32 kernel; all equal to the plain
+        version.  The launches of the longer query are window_general32's
+        in the report."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.window import (K3_MAX_M, both_strands,
@@ -510,34 +597,48 @@ class Smoke:
         base = np.array([self.rng.integers(0, lens[i] - r + 1)
                          for i, r in zip(seg_idx, rl)], np.int32)
         scan_idx = self.rng.integers(0, 48, rows).astype(np.int32)
-        for m, want_k in ((K3_MAX_M, "window_fwd"),
-                          (K3_MAX_M + 1, "window_general")):
+        for m in (K3_MAX_M, K3_MAX_M + 1):
             eng = self.engine(self.dna(m))
-            spec = {"seg_idx": seg_idx, "scan_idx": scan_idx, "base": base,
-                    "dirn": np.ones(rows, np.int32), "rlens": rl,
-                    "offs": np.zeros(rows, np.int32),
-                    "terms": np.full(rows, -1, np.int32),
-                    "mreals": np.full(rows, eng.m16, np.int32)}
-            self.reset_counts()
-            got = eng.window_pass_specs(segs, lens, spec, rev=False)
-            torch.cuda.synchronize()
-            counts = self.read_counts()
-            require(counts[want_k] == 1 and sum(counts.values()) == 1,
-                    f"K3 gate, m={m}: launches {counts}, want {want_k}")
             d = eng._dev
-            cols = [torch.from_numpy(a).to(self.dev) for a in (
-                seg_idx, scan_idx, base, spec["dirn"], rl)]
-            codes = gather_window_codes(both_strands(segs_d, lens_d),
-                                        *segs.shape, d["lut_s"], d["is_tr"],
-                                        *cols, 64)
-            full = lambda v: torch.full((rows,), v, dtype=torch.int32,
-                                        device=self.dev)
-            want = window_pass_ref(codes, d["qwin_fwd"], full(0), full(-1),
-                                   cols[4], full(eng.m16), eng.m)
-            self.compare(want_k, torch.from_numpy(got).to(self.dev), want,
-                         f"K3 gate m={m}")
-            print(f"  K3 gate, m={m}: uniform forward specs on {want_k} "
-                  f"only, {rows} rows equal")
+            m16 = eng.m16
+            kinds = (
+                ("uniform forward", False, np.zeros(rows, np.int32),
+                 np.full(rows, -1, np.int32), np.full(rows, m16, np.int32),
+                 "window_fwd" if m <= K3_MAX_M else "window_general32"),
+                ("reverse", True,
+                 self.rng.integers(0, m, rows).astype(np.int32),
+                 self.rng.integers(-1, 40, rows).astype(np.int32),
+                 (m + self.rng.integers(0, 16, rows)).astype(np.int32),
+                 "window_general" if m <= K3_MAX_M
+                 else "window_general32"))
+            for what, rev, offs, terms, mreals, want_k in kinds:
+                spec = {"seg_idx": seg_idx, "scan_idx": scan_idx,
+                        "base": base, "dirn": np.ones(rows, np.int32),
+                        "rlens": rl, "offs": offs, "terms": terms,
+                        "mreals": mreals}
+                self.reset_counts()
+                got = eng.window_pass_specs(segs, lens, spec, rev=rev)
+                torch.cuda.synchronize()
+                counts = self.read_counts()
+                require(counts[want_k] == 1 and sum(counts.values()) == 1,
+                        f"gate, m={m}, {what}: launches {counts}, want "
+                        f"{want_k}")
+                if want_k == "window_general32":
+                    self.launches[want_k] = self.launches.get(want_k, 0) \
+                        + counts[want_k]
+                cols = [torch.from_numpy(a).to(self.dev) for a in (
+                    seg_idx, scan_idx, base, spec["dirn"], rl, offs, terms,
+                    mreals)]
+                codes = gather_window_codes(both_strands(segs_d, lens_d),
+                                            *segs.shape, d["lut_s"],
+                                            d["is_tr"], *cols[:5], 64)
+                want = window_pass_ref(
+                    codes, d["qwin_rev" if rev else "qwin_fwd"], cols[5],
+                    cols[6], cols[4], cols[7], eng.m)
+                self.compare(want_k, torch.from_numpy(got).to(self.dev),
+                             want, f"gate m={m} {what}")
+                print(f"  gate, m={m}: {what} specs on {want_k} only, "
+                      f"{rows} rows equal")
 
     # -- K6 --------------------------------------------------------------
 
@@ -763,7 +864,8 @@ class Smoke:
             return [ln for ln in text.splitlines()
                     if not ln.startswith("Running time is")]
 
-        with open(os.path.join(golden, "stdout.txt")) as f:
+        [stdout] = [f for f in os.listdir(golden) if f.startswith("stdout")]
+        with open(os.path.join(golden, stdout)) as f:
             require(strip(buf.getvalue()) == strip(f.read()),
                     f"{case}: stdout differs from the golden")
         return wall
@@ -776,6 +878,7 @@ class Smoke:
                 "window_keys": window_v1.window_keys,
                 "window_fwd": window.window_fwd,
                 "window_general": window.window_general,
+                "window_general32": window.window_general32,
                 "scan_codes_colmax": scan_codes.scan_codes_colmax}
 
     def reset_counts(self) -> None:
@@ -786,31 +889,39 @@ class Smoke:
         return {k: fn.launches for k, fn in self.wrappers().items()}
 
     K135 = ("scan_colmax", "window_fwd", "window_general")
+    # every golden query is shorter than K3_MAX_M rows
+    LONG = ("window_general32",)
     SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
     # (golden case, DNA, RNA, extra flags, driver, environment, kernels of
     # its path, kernels it must not launch, whether it is a main path whose
     # counts the report gives)
     GOLDENS = (
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli", {}, K135,
-         (), False),
+         LONG, False),
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli",
          {"FASIM_WIN_V3": "0"}, ("scan_colmax", "window_general"),
-         ("window_fwd",), False),
-        ("h19_default", "testDNA.fa", "H19.fa", [], "cli", {}, K135, (),
+         ("window_fwd",) + LONG, False),
+        ("h19_default", "testDNA.fa", "H19.fa", [], "cli", {}, K135, LONG,
          False),
         ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
          {}, ("scan_colmax",), (), False),
         ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli", {},
          ("scan_colmax",), (), False),
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "batched-v1",
-         {}, ("scan_codes_colmax", "window_fwd", "window_general"), (),
+         {}, ("scan_codes_colmax", "window_fwd", "window_general"), LONG,
          False),
         ("meg3_sub16", "meg3sub16.fa", "MEG3.fa", [], "per-segment", {},
          ("scan_codes_colmax",), (), True),
-        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135, (),
+        ("neat1", "testDNA.fa", "NEAT1.fa", [], "cli", {}, K135, LONG,
+         False),
+        ("malat1", "testDNA.fa", "MALAT1.fa", [], "cli", {}, K135, LONG,
+         False),
+        ("meg3_sub64", "meg3sub64.fa", "MEG3.fa", [], "cli", {}, K135, LONG,
+         False),
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135, LONG,
          True),
         ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", SWITCHED,
-         ("scan_colmax16", "window_keys"), K135, True),
+         ("scan_colmax16", "window_keys"), K135 + LONG, True),
     )
 
     def phase_e2e(self) -> None:
@@ -846,6 +957,7 @@ class Smoke:
             scan_colmax_ref)
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
+                                                    window_general32,
                                                     window_pass_ref)
         from fasim_tpu_torch.kernels.window_v1 import (v1_rows, window_keys,
                                                        window_keys_ref)
@@ -890,7 +1002,7 @@ class Smoke:
                                           key=lambda c: len(c[2]["rlens"]))
             parts = self.spec_codes(segs_c, lens_c, spec, rev)
             qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
-            tab = self.cap_eng._dev["wtab_fwd"]
+            tab = self.cap_eng._dev["wtab_rev" if rev else "wtab_fwd"]
             m, m16 = self.cap_eng.m, self.cap_eng.m16
 
             def run(how, parts=parts, qp=qp, tab=tab):
@@ -900,7 +1012,9 @@ class Smoke:
                     if how == "plain":
                         window_pass_ref(*args)
                     elif how == "window_general":
-                        window_general(*args)
+                        window_general(*args, tab)
+                    elif how == "window_general32":
+                        window_general32(*args)
                     else:
                         window_fwd(codes, qp, tab, part["rlens"], m, m16)
 
@@ -921,18 +1035,34 @@ class Smoke:
                   f"of {rows} rows (rows per width {widths}), "
                   f"m={m}: kernel {self.ms[kernel]:.3f} ms, plain "
                   f"{self.plain_ms[kernel]:.3f} ms")
+            edges = (0, 16, 32, 48, 64, 128, 256)
+            # bins (a, b] of the integer lengths: np.histogram's [a + 1,
+            # b + 1)
+            hist = np.histogram(rl, bins=np.add(edges, 1))[0]
+            print("  rlen histogram of the dispatch: " + ", ".join(
+                f"({a}, {b}] {int(n)}" for a, b, n in zip(
+                    edges, edges[1:], hist)))
             if not rev:
-                # the same specs (off 0, terms -1, mreals m16) on K4: the
-                # int32 layout K3 had before window_fwd.cu
-                old_ms = self.cuda_ms(lambda: run("window_general"), 5)
+                # the same specs (off 0, terms -1, mreals m16) on K4's int32
+                # kernel (the int32 layout K3 had before window_fwd.cu) and
+                # on its 16-bit kernel
+                old_ms = self.cuda_ms(lambda: run("window_general32"), 5)
+                k4_ms = self.cuda_ms(lambda: run("window_general"), 5)
                 print(f"  K3 window_fwd {self.ms[kernel]:.3f} ms against "
-                      f"the int32 layout (window_general, uniform specs) "
-                      f"{old_ms:.3f} ms on the same dispatch")
-                edges = (0, 16, 32, 48, 64, 128, 256)
-                hist = np.histogram(rl, bins=edges)[0]
-                print("  rlen histogram of the forward dispatch: " + ", ".join(
-                    f"({a}, {b}] {int(n)}" for a, b, n in zip(
-                        edges, edges[1:], hist)))
+                      f"the int32 layout (window_general32, uniform specs) "
+                      f"{old_ms:.3f} ms and K4's 16-bit kernel "
+                      f"(window_general) {k4_ms:.3f} ms on the same "
+                      "dispatch")
+            else:
+                self.ms["window_general32"] = self.cuda_ms(
+                    lambda: run("window_general32"), 5)
+                self.plain_ms["window_general32"] = self.plain_ms[kernel]
+                self.work["window_general32"] = self.work[kernel]
+                print(f"  K4 window_general {self.ms[kernel]:.3f} ms against "
+                      f"its int32 kernel (window_general32) "
+                      f"{self.ms['window_general32']:.3f} ms on the same "
+                      f"dispatch")
+                self.k4_sweep(spec, parts, qp, tab, m, cells)
             # K6 on the same dispatch, in the v1 rows
             k6 = [v1_rows(c, p["offs"], p["mreals"]) for _, c, p in parts]
             qc = self.cap_eng._qcodes(rev)
@@ -958,6 +1088,59 @@ class Smoke:
         for name, regs in ptxas_registers().items():
             if "window" in name:
                 print(f"  ptxas registers {name}: {regs}")
+
+    def k4_sweep(self, spec, parts, qp, tab, m: int, cells: int) -> None:
+        """What K4's 16-bit kernel sweeps on a dispatch, from the wrapper's
+        pair order: the histogram of the spans max(mreal, m) - off, that of
+        the offset mismatches within pairs, and per width class its time
+        (the wrapper), its bound and the cells it sweeps (both halves of
+        every pair: its columns x its rows from the lower offset) against
+        the cells its bound counts."""
+        np = self.np
+        from fasim_tpu_torch.kernels.window import (K4_SHORT, pair_order,
+                                                    window_general)
+
+        span = np.maximum(spec["mreals"], m) - np.maximum(spec["offs"], 0)
+        edges = (0, 64, 256, 512, 1024, 2048, 1 << 17)
+        hist = np.histogram(span, bins=np.add(edges, 1))[0]  # (a, b]
+        print("  span histogram of the reverse dispatch: " + ", ".join(
+            f"({a}, {b}] {int(n)}" for a, b, n in zip(edges, edges[1:],
+                                                       hist)))
+        gaps, swept_all = [], 0
+        for W, codes, part in parts:
+            offs = np.maximum(part["offs"].cpu().numpy(), 0)
+            top = np.maximum(part["mreals"].cpu().numpy(), m)
+            rl = part["rlens"].cpu().numpy().astype(np.int64)
+            need = int((rl * (top - offs)).sum())
+            order, n_first = pair_order(part["rlens"], part["offs"], m,
+                                        K4_SHORT[W])
+            order = order.cpu().numpy()
+            n = int(n_first)
+            swept = 0
+            for group, cols in ((order[:n], K4_SHORT[W]), (order[n:], W)):
+                a, b = group[0::2], group[1::2]
+                b = np.concatenate([b, a[len(b):]])  # a lone last window
+                gaps.append(np.abs(offs[a] - offs[b]))
+                swept += 2 * cols * int((np.maximum(top[a], top[b])
+                                         - np.minimum(offs[a], offs[b])).sum())
+            swept_all += swept
+            args = (codes, qp, part["offs"], part["terms"], part["rlens"],
+                    part["mreals"], m, tab)
+            ms = self.cuda_ms(lambda: window_general(*args), 5)
+            bound_ms = self.bound(ops_per_cell("window_general", m) * need,
+                                  0)[0]
+            print(f"  K4 {W}-column class, {codes.shape[0]} rows: "
+                  f"{ms:.3f} ms, bound {bound_ms:.3f} ms, cells swept "
+                  f"{swept} against the bound's {need} "
+                  f"({swept / max(need, 1):.3f}x)")
+        gaps = np.concatenate(gaps)
+        edges = (0, 1, 16, 128, 1 << 17)
+        hist = np.histogram(gaps, bins=edges)[0]
+        print("  offset mismatch within K4's pairs: " + ", ".join(
+            f"[{a}, {b}) {int(n)}" for a, b, n in zip(edges, edges[1:],
+                                                       hist))
+              + f"; cells swept {swept_all} against the bound's {cells} "
+              f"({swept_all / cells:.3f}x)")
 
     def k5_times(self) -> None:
         """K5 at the per-segment shape (both alphabets; the ssw pass is the
@@ -1000,6 +1183,39 @@ class Smoke:
               f"({cells / ms / 1e6:.1f} G cell-updates/s; bound "
               f"{bound_ms:.3f} ms)")
 
+    # -- phase 6 ---------------------------------------------------------
+
+    def phase_trace(self) -> None:
+        """One more default MEG3-full run through the CLI, under
+        torch.profiler: the device time of each kernel and copy (CUDA
+        activity events, summed by name) and their sum against the run's
+        wall.  The report's launch counts stay phase 4's."""
+        import collections
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = self.run_golden("meg3_full", "meg3dna.fa", "MEG3.fa", [],
+                                   "cli")
+        busy_us = collections.Counter()
+        count = collections.Counter()
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                busy_us[evt.name] += evt.time_range.elapsed_us()
+                count[evt.name] += 1
+        if not busy_us:
+            print("  meg3_full device time: not measured (the profiler "
+                  "recorded no device events)")
+            return
+        busy = sum(busy_us.values()) / 1e6
+        print(f"  meg3_full (cli) under torch.profiler: byte-identical, wall "
+              f"{wall:.3f} s, device busy {busy:.3f} s summed over kernels "
+              f"and copies ({busy / wall:.1%} of the wall)")
+        for name, us in busy_us.most_common(16):
+            print(f"    {us / 1e3:.3f} ms in {count[name]} x {name[:100]}")
+
     def bound(self, ops: float, nbytes: float):
         """(least ms the card could take, the term that sets it)."""
         t_ops = ops / self.int32_ops * 1e3
@@ -1024,7 +1240,7 @@ class Smoke:
         return {"kernels": out}
 
 
-PHASES = ("device", "build", "kernels", "e2e", "times")
+PHASES = ("device", "build", "kernels", "e2e", "times", "trace")
 
 
 def main() -> int:

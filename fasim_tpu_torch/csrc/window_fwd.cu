@@ -14,17 +14,11 @@
 // What bounds it on this card: integer ALU throughput (no memory traffic
 // beyond the window codes, the per-row score table, an L1/L2 hit, and the
 // ends).  Design:
-//  * two windows per 32-bit register: window A in the low half, B in the
-//    high half, with Hopper's s16x2 DPX forms (as sw_colmax.cuh:CellS16x2).
-//    A window's H never exceeds 5 * min(m, 256) = 1,280 and E and F never
-//    fall below -20, so int16 is exact at every query length;
+//  * two windows per 32-bit register in the s16x2 DPX forms, 6 operations
+//    per two cells, with the score table, the selector and the row keys of
+//    window_s16.cuh (shared with K4, window_gen.cu);
 //  * every window of a dispatch reads the same query rows from row 0, so
-//    one 8-byte table per query row (score + 16 of codes 0..7) serves both
-//    halves: a score is one prmt by a per-column selector built once from
-//    the two windows' codes;
-//  * each column keeps G = H - 16 (the score table's +16 makes G the
-//    diagonal operand), so E, F and H cost one DPX operation each and H - 16
-//    one more: 6 operations per two cells;
+//    one 8-byte table row serves both halves of every pair;
 //  * lane k of an L-lane segment owns C consecutive columns and the
 //    segment sweeps the query rows as a diagonal wavefront (lane k on row
 //    step - k); G and E of the column left of a lane's block pass right by
@@ -36,94 +30,15 @@
 //  * the sweep has three phases: the wavefront's start and its end
 //    (guarded per lane), and the steps in between, where every lane is on
 //    a real row and runs unguarded with the next row's table prefetched;
-//  * statistics without a branch: on real rows each half keeps a 32-bit
-//    key (H << 16) | (0xFFFF - row) per column (a prmt and a max), whose
-//    max is the column's real-row max and its lowest row; phantom rows
-//    keep only a packed max.  Hence the engine's gate m <= 65536.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+//  * the row keys hold rows in 16 bits: hence the engine's gate
+//    m <= 65536.
+#include "window_s16.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using namespace fasim_s16;
+
 constexpr int kWarpsPerBlock = 4;
-constexpr int kBig = 1 << 30;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kMin = 0x80008000u;  // -32768: max(x, kMin) = x
-constexpr unsigned kM4 = 0xFFFCFFFCu;   // -4 in both halves
-constexpr unsigned kM16 = 0xFFF0FFF0u;  // -16: G of row -1 and column -1
-constexpr unsigned kTop = 0xC000C000u;  // -16384: F above row 0
-
-__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b,
-                                         unsigned sel) {
-  unsigned d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-// the prmt selector of a column whose codes are ca (window A) and cb (B):
-// each half gets the sign-extended table byte of its code
-__device__ __forceinline__ unsigned selector(unsigned ca, unsigned cb) {
-  return ca | (ca | 8) << 4 | cb << 8 | (cb | 8) << 12;
-}
-
-// A column's statistics for both windows: on real rows the keys
-// (H << 16) | (0xFFFF - row), whose max holds the real-row max and its
-// lowest row; on phantom rows the packed max.
-struct ColStats {
-  unsigned ka = 0, kb = 0, pm = 0;
-  __device__ __forceinline__ void real(unsigned hv, unsigned tk) {
-    ka = max(ka, prmt(tk, hv, 0x5410));
-    kb = max(kb, prmt(tk, hv, 0x7610));
-  }
-  __device__ __forceinline__ void phantom(unsigned hv) {
-    pm = __vimax_s16x2_relu(pm, hv);
-  }
-  // (real-row max, its lowest row, phantom-row max) of half h
-  __device__ __forceinline__ void get(int h, int& rmax, int& rrow,
-                                      int& pmax) const {
-    const unsigned k = h ? kb : ka;
-    rmax = static_cast<int>(k >> 16);
-    rrow = 0xFFFF - static_cast<int>(k & 0xFFFFu);
-    pmax = static_cast<int>((pm >> (16 * h)) & 0xFFFFu);
-  }
-};
-
-// One lane's share of a pair of windows: C columns of both.
-template <int C, int L>
-struct Lane {
-  unsigned sel[C], g[C], f[C];
-  ColStats st[C];
-  unsigned out_g = kM16, out_e = 0, prev_in_g = kM16;
-
-  // query row i (table t) with the left column's G and E
-  template <bool kReal>
-  __device__ __forceinline__ void row(int i, uint2 t, unsigned in_g,
-                                      unsigned in_e) {
-    unsigned diag = prev_in_g;
-    prev_in_g = in_g;
-    unsigned gl = in_g, el = in_e;
-    const unsigned tk = 0xFFFFu - static_cast<unsigned>(i);
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const unsigned sc = prmt(t.x, t.y, sel[k]);      // s + 16
-      el = __viaddmax_s16x2(el, kM4, gl);              // E
-      const unsigned tmp = __viaddmax_s16x2_relu(diag, sc, el);
-      f[k] = __viaddmax_s16x2(f[k], kM4, g[k]);        // F
-      const unsigned hv = __vimax_s16x2_relu(tmp, f[k]);  // H
-      diag = g[k];
-      gl = __viaddmax_s16x2(hv, kM16, kMin);           // H - 16
-      g[k] = gl;
-      if (kReal)
-        st[k].real(hv, tk);
-      else
-        st[k].phantom(hv);
-    }
-    out_g = gl;
-    out_e = el;
-  }
-};
 
 // Windows [lo, hi) of the (possibly reordered) row list, two a segment of
 // L lanes, starting with the warp's segment 0 at pair `first`.
@@ -138,15 +53,8 @@ __device__ __forceinline__ void run_pairs(
   const int ra = pos < hi ? (order ? order[pos] : pos) : -1;
   const int rb = pos + 1 < hi ? (order ? order[pos + 1] : pos + 1) : -1;
   const int col0 = sub * C;
-  Lane<C, L> w;
-#pragma unroll
-  for (int k = 0; k < C; ++k) {
-    const unsigned ca = ra >= 0 ? codes[(size_t)ra * stride + col0 + k] : 4;
-    const unsigned cb = rb >= 0 ? codes[(size_t)rb * stride + col0 + k] : 4;
-    w.sel[k] = selector(ca, cb);
-    w.g[k] = kM16;
-    w.f[k] = kTop;
-  }
+  Lane<C> w;
+  w.init(codes, stride, ra, rb, col0);
 
   auto guarded = [&](int step) {
     unsigned in_g = __shfl_up_sync(kFull, w.out_g, 1, L);
@@ -201,9 +109,7 @@ __device__ __forceinline__ void run_pairs(
         erow = rmax >= pmax ? rrow : kBig;
       }
     }
-#pragma unroll
-    for (int d = L / 2; d > 0; d /= 2)
-      key = max(key, __shfl_xor_sync(kFull, key, d, L));
+    key = seg_max<L>(key);
     const int best = key >> 8;
     const int ecol = 255 - (key & 255);
     erow = __shfl_sync(kFull, erow, ecol / C, L);

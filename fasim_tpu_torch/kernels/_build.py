@@ -44,6 +44,8 @@ SIGNATURES = {
     "fasim_window_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                              _P],
+    "fasim_window_gen": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                         _P],
     "fasim_window_keys": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
 }
 

@@ -16,8 +16,9 @@ engine itself with the `numpy_engine` contract (`__call__`, built on
   * qwin_fwd / qwin_rev int32[3, mpw]: the window query rows (K3, K4;
     row 0 holds the query codes K6 streams).
 
-Derived from qwin_fwd whenever it is set, and kept on the device only:
-wtab_fwd int8[mpw, 8], K3's per-row score table (`score_table`).
+Derived from qwin_fwd and qwin_rev whenever they are set, and kept on the
+device only: wtab_fwd and wtab_rev int8[mpw, 8], the per-row score tables
+(`score_table`) that K3 and K4 read.
 
 The engine runs on cuda:0 unless constructed with device="cpu".  On a
 CUDA device every device pass is a hand-written kernel; on the CPU the
@@ -28,7 +29,8 @@ FASIM_SCAN16=1 (at construction) runs the scan passes inside the int16
 gate on K7; FASIM_WIN_V1=1 (at setup_windows) runs every window pass on
 K6; FASIM_WIN_V3=0 (at setup_windows) sends the uniform forward specs to
 K4 instead of K3.  Queries longer than K3_MAX_M rows send them to K4 too
-(K3 keeps row indices in 16 bits).
+(K3 keeps row indices in 16 bits), whose wrapper runs them on its int32
+kernel.
 """
 
 from __future__ import annotations
@@ -105,8 +107,10 @@ class TorchScanEngine:
             arr = np.ascontiguousarray(arr, STATE_DTYPES[key])
             self._host[key] = arr
             self._dev[key] = torch.from_numpy(arr.copy()).to(self.device)
-        if "qwin_fwd" in tables:
-            self._dev["wtab_fwd"] = score_table(self._dev["qwin_fwd"])
+        for key in ("qwin_fwd", "qwin_rev"):
+            if key in tables:
+                self._dev[key.replace("qwin", "wtab")] = score_table(
+                    self._dev[key])
 
     def state(self) -> dict[str, np.ndarray]:
         """Copies of the engine's tables (numpy)."""
@@ -340,6 +344,7 @@ class TorchScanEngine:
         klass = width_class(cols["rlens"])
         d = self._dev
         qp = d["qwin_rev" if rev else "qwin_fwd"]
+        tab = d["wtab_rev" if rev else "wtab_fwd"]
         out = torch.empty(rows, 3, dtype=torch.int32, device=self.device)
         for width in WIDTHS:
             sel = np.flatnonzero(klass == width)
@@ -356,12 +361,12 @@ class TorchScanEngine:
                                part["terms"], part["rlens"], part["mreals"],
                                self.m)
             elif uniform:
-                ends = window_fwd(codes, qp, d["wtab_fwd"], part["rlens"],
-                                  self.m, self.m16)
+                ends = window_fwd(codes, qp, tab, part["rlens"], self.m,
+                                  self.m16)
             else:
                 ends = window_general(codes, qp, part["offs"],
                                       part["terms"], part["rlens"],
-                                      part["mreals"], self.m)
+                                      part["mreals"], self.m, tab)
             out[torch.from_numpy(sel).to(self.device)] = ends
         return out.cpu().numpy()
 
@@ -392,6 +397,7 @@ class TorchScanEngine:
                            o, t, r, mr, self.m).cpu().numpy()
         klass = width_class(rlens)
         qp = self._dev["qwin_rev" if rev else "qwin_fwd"]
+        tab = self._dev["wtab_rev" if rev else "wtab_fwd"]
         out = np.zeros((rows, 3), np.int32)
         for width in WIDTHS:
             sel = np.flatnonzero(klass == width)
@@ -402,5 +408,5 @@ class TorchScanEngine:
             cp[:, :take] = codes[sel, :take]
             o, t, r, mr = self._to_dev(meta[:, sel], torch.int32)
             out[sel] = window_general(self._to_dev(cp, torch.uint8), qp, o,
-                                      t, r, mr, self.m).cpu().numpy()
+                                      t, r, mr, self.m, tab).cpu().numpy()
         return out

@@ -4,16 +4,20 @@ Replace fasim_tpu/kernels/tpu.py:_wfwd_kernel (K3: the uniform forward
 specs — off 0, mreal m16, no terms, dirn +1) and _wscan_kernel (K4:
 per-row offs, mreals, terms, dirn +-1) together with their ends
 reductions (_ends_from_lane_keys, _ends_from_stats).  K3 is
-csrc/window_fwd.cu (two windows per register in 16-bit cells), K4
-csrc/window.cu (int32 cells); their headers say what bounds them on the
-card and how the designs meet that.  Both return the ends int32[rows, 3]
-= (best, end_col, end_row) directly.  `window_pass_ref` is their plain
+csrc/window_fwd.cu and K4 csrc/window_gen.cu, both two windows per
+register in 16-bit cells (csrc/window_s16.cuh), K4 with each window swept
+from its own offset; their headers say what bounds them on the card and
+how the designs meet that.  Both keep query rows in 16 bits, so queries
+longer than K3_MAX_M rows take K4's int32 kernel csrc/window.cu
+(`window_general32`), routed by shape.  All return the ends int32[rows,
+3] = (best, end_col, end_row) directly.  `window_pass_ref` is their plain
 PyTorch version, ported from kernels/xla.py:window_pass_xla.
 
-Also here: the window query rows (`window_qp`, xla.py:_window_qp), K3's
-per-row score table (`score_table`) and row order (`pair_order`), and the
-device-side window gather (`gather_window_codes`, the gather of
-tpu.py:_wspecs_call / _wspecs_fwd_call and xla.py:build_window_codes).
+Also here: the window query rows (`window_qp`, xla.py:_window_qp), the
+per-row score table of K3 and K4 (`score_table`) and their row order
+(`pair_order`), and the device-side window gather
+(`gather_window_codes`, the gather of tpu.py:_wspecs_call /
+_wspecs_fwd_call and xla.py:build_window_codes).
 """
 
 from __future__ import annotations
@@ -30,14 +34,21 @@ from .scan import reverse_prefix
 _NEG = -(2 ** 30)
 _BIG = 1 << 30
 
-# kernel widths (window_fwd.cu and window.cu lay out each in its own way)
+# kernel widths (each kernel lays out each width in its own way)
 WIDTHS = (64, 128, 256)
-# K3 keeps a column's lowest attaining row in 16 bits: query rows < 2**16
+# K3 and K4 keep a column's lowest attaining row in 16 bits: query rows
+# < 2**16 (longer queries: window_general32)
 K3_MAX_M = 1 << 16
 # K3 runs the 64-column windows with rlen <= 32 at 32 columns
 NARROW = 32
-# K3's table holds score + 16, so that H - 16 is the diagonal operand
+# K4 runs each width class's short windows, rlen <= K4_SHORT[W], at that
+# many columns
+K4_SHORT = {64: 32, 128: 96, 256: 192}
+# the score table holds score + 16, so that H - 16 is the diagonal operand
 TABLE_BIAS = 16
+# a code no window holds (codes are 0..4): it scores 0 on every row, which
+# K4 reads for a window's rows below its offset
+ZERO_CODE = 7
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,22 +81,37 @@ def window_qp(rna: np.ndarray) -> np.ndarray:
 
 
 def score_table(qp: torch.Tensor) -> torch.Tensor:
-    """K3's per-row score table int8[Mp, 8] from the window query rows
-    int32[3, Mp]: byte c of row i is s(c, i) + TABLE_BIAS, s(c, i) = hi if
-    c == q else lo (codes 0..7; the phantom rows are 0 + TABLE_BIAS)."""
+    """The per-row score table int8[Mp, 8] of K3 and K4 from the window
+    query rows int32[3, Mp]: byte c of row i is s(c, i) + TABLE_BIAS,
+    s(c, i) = hi if c == q else lo for codes 0..6 (the phantom rows are 0
+    + TABLE_BIAS), and s(ZERO_CODE, i) = 0 on every row."""
     c = torch.arange(8, dtype=torch.int32, device=qp.device)
     s = torch.where(c[None, :] == qp[0][:, None], qp[1][:, None],
                     qp[2][:, None])
+    s[:, ZERO_CODE] = 0
     return (s + TABLE_BIAS).to(torch.int8).contiguous()
 
 
-def pair_order(rlens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's row order for a 64-column dispatch: (order int32[rows], the
-    windows with rlen <= NARROW first and then the others, each in their
-    own order; their count int32[1]).  The kernel pairs order[2p] and
-    order[2p + 1]; all on the device, with no host round trip."""
-    wide = rlens > NARROW
-    order = torch.argsort(wide.to(torch.uint8), stable=True)
+def pair_order(rlens: torch.Tensor, offs: torch.Tensor | None = None,
+               m: int = 0, short: int = NARROW
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row order of K3's 64-column dispatches and of K4's: (order
+    int32[rows], the windows with rlen <= short first and then the
+    others, each part in its own order or, given offs, sorted by offset
+    clamped to [0, m] (stable; the kernel starts an offset past m at m);
+    the count of the first part int32[1]).  The kernels pair order[2p]
+    and order[2p + 1], so K4's pairs mostly share their start row; all on
+    the device, with no host round trip.  The key takes the narrowest
+    integer type that holds it: a radix sort's passes grow with its
+    width."""
+    wide = rlens > short
+    if offs is None:
+        key = wide.to(torch.uint8)
+    else:
+        dt = torch.int16 if 2 * m + 1 <= torch.iinfo(torch.int16).max \
+            else torch.int32
+        key = offs.clamp(0, m).to(dt).add_(wide.to(dt), alpha=m + 1)
+    order = torch.argsort(key, stable=True)
     return order.to(torch.int32), (~wide).sum(dtype=torch.int32).reshape(1)
 
 
@@ -160,6 +186,25 @@ def window_pass_ref(codes: torch.Tensor, qp: torch.Tensor,
     return torch.stack([best, ecol, erow], dim=1)
 
 
+def _on_card(name: str, codes: torch.Tensor) -> bool:
+    """False for CPU tensors (the plain version), True for CUDA ones (the
+    kernel); any other device raises."""
+    if codes.device.type == "cpu":
+        return False
+    if codes.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {codes.device}")
+    return True
+
+
+def _run(entry: str, codes: torch.Tensor, *args) -> None:
+    """Launch a kernel entry point on codes' device and PyTorch's current
+    stream there; raise on its CUDA error code."""
+    lib = _build.lib()
+    with torch.cuda.device(codes.device):
+        err = getattr(lib, entry)(*args, _build.stream_of(codes))
+    _build.check(err, entry)
+
+
 def _check(name: str, codes: torch.Tensor, qp: torch.Tensor, rows: dict):
     W = codes.shape[1]
     if W not in WIDTHS or codes.dtype != torch.uint8 \
@@ -177,6 +222,15 @@ def _check(name: str, codes: torch.Tensor, qp: torch.Tensor, rows: dict):
                              f" on {codes.device}")
 
 
+def _check_tab(name: str, tab: torch.Tensor, codes: torch.Tensor,
+               rows: int) -> None:
+    if tab.device != codes.device or tab.dtype != torch.int8 \
+            or tab.dim() != 2 or tab.shape[1] != 8 \
+            or tab.shape[0] <= rows or not tab.is_contiguous():
+        raise ValueError(f"{name}: tab must be contiguous int8[> {rows}, 8] "
+                         f"on {codes.device}")
+
+
 def window_fwd(codes: torch.Tensor, qp: torch.Tensor, tab: torch.Tensor,
                rlens: torch.Tensor, m: int, m16: int) -> torch.Tensor:
     """K3: ends int32[rows, 3] of the uniform forward pass (off 0, mreal
@@ -185,65 +239,79 @@ def window_fwd(codes: torch.Tensor, qp: torch.Tensor, tab: torch.Tensor,
     CUDA tensors launch the kernel (counted in `window_fwd.launches`),
     which reads the query through tab and takes m <= K3_MAX_M."""
     rows = codes.shape[0]
-    if codes.device.type == "cpu":
+    if not _on_card("window_fwd", codes):
         def fill(v):
             return torch.full((rows,), v, dtype=torch.int32)
 
         return window_pass_ref(codes, qp, fill(0), fill(-1), rlens,
                                fill(m16), m)
-    if codes.device.type != "cuda":
-        raise ValueError(f"window_fwd: unsupported device {codes.device}")
     _check("window_fwd", codes, qp, {"rlens": rlens})
     if m > K3_MAX_M:
         raise ValueError(f"window_fwd: m = {m} > {K3_MAX_M} (route to "
                          "window_general)")
-    if tab.device != codes.device or tab.dtype != torch.int8 \
-            or tab.dim() != 2 or tab.shape[1] != 8 \
-            or tab.shape[0] <= m16 or not tab.is_contiguous():
-        raise ValueError("window_fwd: tab must be contiguous int8[> m16, 8] "
-                         f"on {codes.device}")
+    _check_tab("window_fwd", tab, codes, m16)
     order, n_first = pair_order(rlens) if codes.shape[1] == 64 \
         else (None, None)
     out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
-    lib = _build.lib()
-    with torch.cuda.device(codes.device):
-        err = lib.fasim_window_fwd(
-            codes.data_ptr(), codes.shape[1], tab.data_ptr(),
-            rlens.data_ptr(), None if order is None else order.data_ptr(),
-            None if n_first is None else n_first.data_ptr(), rows, m, m16,
-            out.data_ptr(), _build.stream_of(codes))
-    _build.check(err, "fasim_window_fwd")
+    _run("fasim_window_fwd", codes, codes.data_ptr(), codes.shape[1],
+         tab.data_ptr(), rlens.data_ptr(),
+         None if order is None else order.data_ptr(),
+         None if n_first is None else n_first.data_ptr(), rows, m, m16,
+         out.data_ptr())
     _build.count_launch(window_fwd)
     return out
 
 
 def window_general(codes: torch.Tensor, qp: torch.Tensor,
                    offs: torch.Tensor, terms: torch.Tensor,
-                   rlens: torch.Tensor, mreals: torch.Tensor,
-                   m: int) -> torch.Tensor:
+                   rlens: torch.Tensor, mreals: torch.Tensor, m: int,
+                   tab: torch.Tensor | None = None) -> torch.Tensor:
     """K4: ends int32[rows, 3] with per-row offs, terms and mreals.  CPU
-    tensors take `window_pass_ref`; CUDA tensors launch the kernel
-    (counted in `window_general.launches`)."""
-    if codes.device.type == "cpu":
+    tensors take `window_pass_ref`; CUDA tensors launch the 16-bit kernel
+    (counted in `window_general.launches`), which reads the query through
+    tab = score_table(qp) (the engine keeps it; built here when not
+    given), or, for m > K3_MAX_M, `window_general32`."""
+    if not _on_card("window_general", codes):
         return window_pass_ref(codes, qp, offs, terms, rlens, mreals, m)
-    if codes.device.type != "cuda":
-        raise ValueError(
-            f"window_general: unsupported device {codes.device}")
+    if m > K3_MAX_M:
+        return window_general32(codes, qp, offs, terms, rlens, mreals, m)
     _check("window_general", codes, qp,
+           {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
+    if tab is None:
+        tab = score_table(qp)
+    _check_tab("window_general", tab, codes, m)
+    rows, W = codes.shape
+    order, n_first = pair_order(rlens, offs, m, K4_SHORT[W])
+    out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
+    _run("fasim_window_gen", codes, codes.data_ptr(), W, tab.data_ptr(),
+         tab.shape[0], offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),
+         rlens.data_ptr(), order.data_ptr(), n_first.data_ptr(), rows, m,
+         out.data_ptr())
+    _build.count_launch(window_general)
+    return out
+
+
+def window_general32(codes: torch.Tensor, qp: torch.Tensor,
+                     offs: torch.Tensor, terms: torch.Tensor,
+                     rlens: torch.Tensor, mreals: torch.Tensor,
+                     m: int) -> torch.Tensor:
+    """K4 in int32 cells at any query length, one window a warp
+    (csrc/window.cu): what `window_general` launches for m > K3_MAX_M.
+    CPU tensors take `window_pass_ref`; CUDA tensors launch the kernel
+    (counted in `window_general32.launches`)."""
+    if not _on_card("window_general32", codes):
+        return window_pass_ref(codes, qp, offs, terms, rlens, mreals, m)
+    _check("window_general32", codes, qp,
            {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
     rows = codes.shape[0]
     out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
-    lib = _build.lib()
-    with torch.cuda.device(codes.device):
-        err = lib.fasim_window_general(
-            codes.data_ptr(), codes.shape[1], qp.data_ptr(), qp.stride(0),
-            offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),
-            rlens.data_ptr(), rows, m, out.data_ptr(),
-            _build.stream_of(codes))
-    _build.check(err, "fasim_window_general")
-    _build.count_launch(window_general)
+    _run("fasim_window_general", codes, codes.data_ptr(), codes.shape[1],
+         qp.data_ptr(), qp.stride(0), offs.data_ptr(), mreals.data_ptr(),
+         terms.data_ptr(), rlens.data_ptr(), rows, m, out.data_ptr())
+    _build.count_launch(window_general32)
     return out
 
 
 window_fwd.launches = 0
 window_general.launches = 0
+window_general32.launches = 0

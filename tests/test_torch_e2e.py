@@ -57,7 +57,9 @@ def _check_cli(tmp_path, case, f1, f2, extra, env):
         cwd=tmp_path, env=dict(_env(), **env), check=True,
         capture_output=True, timeout=600)
     produced = sorted(os.listdir(out))
-    expected = sorted(f for f in os.listdir(golden_dir) if f != "stdout.txt")
+    # the golden's one stdout file: stdout.txt, or stdout_<case>.txt
+    [stdout] = [f for f in os.listdir(golden_dir) if f.startswith("stdout")]
+    expected = sorted(f for f in os.listdir(golden_dir) if f != stdout)
     assert produced == expected
     for name in expected:
         assert filecmp.cmp(out / name, os.path.join(golden_dir, name),
@@ -67,7 +69,7 @@ def _check_cli(tmp_path, case, f1, f2, extra, env):
         return [ln for ln in text.splitlines()
                 if not ln.startswith("Running time is")]
 
-    with open(os.path.join(golden_dir, "stdout.txt")) as f:
+    with open(os.path.join(golden_dir, stdout)) as f:
         assert strip(r.stdout.decode()) == strip(f.read()), case
 
 

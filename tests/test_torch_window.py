@@ -299,6 +299,8 @@ def test_window_kernels_reject_other_devices():
                                                  device=meta), rows, 10, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         window.window_general(codes, qp, rows, rows, rows, rows, 10)
+    with pytest.raises(ValueError, match="unsupported device"):
+        window.window_general32(codes, qp, rows, rows, rows, rows, 10)
 
 
 @pytest.mark.parametrize("m,want", [(window.K3_MAX_M, "window_fwd"),
@@ -327,26 +329,38 @@ def test_k3_gate_at_its_query_length(m, want, monkeypatch):
 
 
 def test_score_table_matches_window_qp():
-    """K3's table: byte c of row i is XLA's window score of code c on query
-    row i, plus TABLE_BIAS, for every code a byte selector can reach
-    (0..7) and every row incl. the phantom ones; the engine keeps it in
-    step with qwin_fwd, also through load_state."""
+    """The score table of K3 and K4: byte c of row i is XLA's window score
+    of code c on query row i, plus TABLE_BIAS, for every code a window
+    holds and the ones past it (0..6) and every row incl. the phantom ones;
+    byte ZERO_CODE is TABLE_BIAS (score 0) on every row.  The engine keeps
+    wtab_fwd and wtab_rev in step with qwin_fwd and qwin_rev, also through
+    load_state."""
     rng = np.random.default_rng(3)
     rna = np.frombuffer(b"ACGTUN", np.uint8)[rng.integers(0, 6, 101)]
-    qp = _window_qp(rna)
-    want = np.where(np.arange(8)[None, :] == qp[0][:, None],
-                    qp[1][:, None], qp[2][:, None]) + window.TABLE_BIAS
+
+    def want_of(q):
+        qp = _window_qp(q)
+        want = np.where(np.arange(8)[None, :] == qp[0][:, None],
+                        qp[1][:, None], qp[2][:, None]) + window.TABLE_BIAS
+        want[:, window.ZERO_CODE] = window.TABLE_BIAS
+        return want
+
+    want = want_of(rna)
+    assert window.ZERO_CODE > 4  # no window code (SSW codes are 0..4)
     tab = window.score_table(torch.from_numpy(window.window_qp(rna)))
-    assert tab.dtype == torch.int8 and tab.shape == (qp.shape[1], 8)
+    assert tab.dtype == torch.int8 and tab.shape == (want.shape[0], 8)
     np.testing.assert_array_equal(tab.numpy(), want)
     port = TorchScanEngine(rna, device="cpu")
     port.setup_windows(rna)
     np.testing.assert_array_equal(port._dev["wtab_fwd"].numpy(), want)
+    np.testing.assert_array_equal(port._dev["wtab_rev"].numpy(),
+                                  want_of(rna[::-1]))
     other = rna[::-1].copy()
-    port.load_state({"qwin_fwd": _window_qp(other)})
-    np.testing.assert_array_equal(
-        port._dev["wtab_fwd"].numpy(),
-        window.score_table(torch.from_numpy(_window_qp(other))).numpy())
+    port.load_state({"qwin_fwd": _window_qp(other),
+                     "qwin_rev": _window_qp(rna)})
+    np.testing.assert_array_equal(port._dev["wtab_fwd"].numpy(),
+                                  want_of(other))
+    np.testing.assert_array_equal(port._dev["wtab_rev"].numpy(), want)
 
 
 def _prmt(a: int, b: int, sel: int) -> int:
@@ -433,3 +447,246 @@ def test_window_best_fits_int16(m, rows, width, seed, match_run):
                                   fill(-1), torch.from_numpy(rlens),
                                   fill(m16), m).numpy()
     assert (ends[:, 0] <= 5 * np.minimum(rlens, m)).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pair_order_by_offset_round_trip(seed):
+    """K4's row order for each width class: a permutation with the rows of
+    rlen <= K4_SHORT[W] first (their count returned), each part sorted by
+    offset clamped to [0, m], rows of equal offset in their original
+    order; at a query length whose key outgrows int16 too."""
+    rng = np.random.default_rng(seed)
+    rows = 41
+    m = (10, 16383, 20000)[seed]
+    W = window.WIDTHS[seed]
+    short = window.K4_SHORT[W]
+    rlens = rng.integers(1, W + 1, rows).astype(np.int32)
+    offs = rng.integers(-2, m + 3, rows).astype(np.int32)
+    offs[:8] = offs[8:16]  # ties
+    order, n = window.pair_order(torch.from_numpy(rlens),
+                                 torch.from_numpy(offs), m, short)
+    assert order.dtype == torch.int32 and n.dtype == torch.int32
+    want = sorted(range(rows), key=lambda i: (bool(rlens[i] > short),
+                                              min(max(int(offs[i]), 0), m),
+                                              i))
+    assert order.numpy().tolist() == want
+    assert n.tolist() == [int((rlens <= short).sum())]
+
+
+@pytest.mark.parametrize("m,want", [
+    (window.K3_MAX_M, "fasim_window_gen"),
+    (window.K3_MAX_M + 1, "fasim_window_general")])
+def test_k4_routes_by_query_length(m, want, monkeypatch):
+    """K4's wrapper on the card (kernels monkeypatched): queries of up to
+    K3_MAX_M rows launch the 16-bit kernel and count in
+    window_general.launches, longer ones the int32 kernel of window.cu and
+    count in window_general32.launches."""
+    entries = []
+    monkeypatch.setattr(window, "_on_card", lambda name, codes: True)
+    monkeypatch.setattr(window, "_run",
+                        lambda entry, codes, *args: entries.append(entry))
+    for fn in (window.window_general, window.window_general32):
+        monkeypatch.setattr(fn, "launches", 0)
+    rows = 6
+    qp = torch.from_numpy(window.window_qp(_rna(np.random.default_rng(m),
+                                                m)))
+    ints = torch.zeros(rows, dtype=torch.int32)
+    out = window.window_general(torch.zeros(rows, 64, dtype=torch.uint8), qp,
+                                ints, ints - 1, ints + 20, ints + m, m)
+    assert out.shape == (rows, 3)
+    assert entries == [want]
+    gen = want == "fasim_window_gen"
+    assert (window.window_general.launches,
+            window.window_general32.launches) == (int(gen), int(not gen))
+
+
+@settings(max_examples=30, deadline=None)
+@given(m=st.integers(1, 90), rows=st.integers(1, 4),
+       width=st.sampled_from([64, 128]), seed=st.integers(0, 2 ** 32 - 1),
+       match_run=st.booleans())
+def test_window_best_fits_int16_reverse_specs(m, rows, width, seed,
+                                              match_run):
+    """The bound K4's 16-bit cells rest on, for reverse specs with random
+    offs, terms and mreals: the best is at most 5 * min(rlen, m - off)
+    (only rows off..m-1 score), so <= 1,280 for any query, and a positive
+    best ends on a row in [off, m), or on _BIG when only a phantom row
+    attains it."""
+    rng = np.random.default_rng(seed)
+    rev = _rna(rng, m)[::-1].copy()
+    q = rules.SSW_ENC[rev]
+    offs = rng.integers(0, m, rows).astype(np.int32)
+    codes = rng.integers(0, 5, (rows, width)).astype(np.uint8)
+    if match_run:  # windows that copy the query from their offset on
+        for r in range(rows):
+            n = min(m - offs[r], width)
+            codes[r, :n] = q[offs[r]:offs[r] + n]
+    rlens = rng.integers(1, width + 1, rows).astype(np.int32)
+    terms = np.where(rng.random(rows) < 0.5, -1,
+                     rng.integers(0, 5 * min(m, width) + 1, rows))
+    mreals = m + rng.integers(0, 16, rows)
+    qp = torch.from_numpy(window.window_qp(rev))
+    ends = window.window_pass_ref(
+        torch.from_numpy(codes), qp, *(torch.from_numpy(
+            np.asarray(a, np.int32)) for a in (offs, terms, rlens, mreals)),
+        m).numpy()
+    assert (ends[:, 0] <= 5 * np.minimum(rlens, m - offs)).all()
+    pos = ends[:, 0] > 0
+    er = ends[pos, 2]
+    assert (((er >= offs[pos]) & (er < m)) | (er == window._BIG)).all()
+
+
+def _s16(v: int) -> int:
+    v &= 0xFFFF
+    return v - 0x10000 if v & 0x8000 else v
+
+
+def _pack(a: int, b: int) -> int:
+    return (a & 0xFFFF) | (b & 0xFFFF) << 16
+
+
+def _addmax(a: int, b: int, c: int, relu: bool = False) -> int:
+    """__viaddmax_s16x2[_relu]: max(a + b, c) in each int16 half."""
+    out = [max(_s16(a >> s) + _s16(b >> s), _s16(c >> s)) for s in (0, 16)]
+    return _pack(*[max(v, 0) if relu else v for v in out])
+
+
+def _max_relu(a: int, b: int) -> int:
+    """__vimax_s16x2_relu."""
+    return _pack(*[max(_s16(a >> s), _s16(b >> s), 0) for s in (0, 16)])
+
+
+def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m):
+    """Bit-level model of window_gen.cu's pair of windows (A low, B high
+    half), columns in order (the wavefront only reorders the cells):
+    the sweep from the lower offset to the larger mreal with the other
+    half on the zero-score code until its own offset, the s16x2 cell, the
+    row keys and the phantom max, each half's masked past its mreal, and
+    the cut and ends reductions.  -> [(best, end_col, end_row)] for A and
+    B."""
+    M16, M4, TOP, MIN = 0xFFF0FFF0, 0xFFFCFFFC, 0xC000C000, 0x80008000
+    W = codes.shape[1]
+    s = [min(max(int(o), 0), m) for o in offs]
+    r0, r1 = min(s), max(s)
+    top = min(max(int(mreals[0]), int(mreals[1])), words.shape[0])
+    zm = 0x7700 if s[0] < s[1] else (0x0077 if s[1] < s[0] else 0)
+    sel = [int(a) | (int(a) | 8) << 4 | int(b) << 8 | (int(b) | 8) << 12
+           for a, b in zip(codes[0], codes[1])]
+    g, f = [M16] * W, [TOP] * W
+    ka, kb, pm = [0] * W, [0] * W, [0] * W
+    for i in range(r0, top):
+        lo, hi = int(words[i, 0]), int(words[i, 1])
+        gl, el, diag = M16, 0, M16  # column -1
+        tk = 0xFFFF - i
+        for k in range(W):
+            sc = _prmt(lo, hi, sel[k] | (zm if i < r1 else 0))
+            el = _addmax(el, M4, gl)
+            tmp = _addmax(diag, sc, el, relu=True)
+            f[k] = _addmax(f[k], M4, g[k])
+            hv = _max_relu(tmp, f[k])
+            diag = g[k]
+            gl = g[k] = _addmax(hv, M16, MIN)
+            mask = (0xFFFF if i < mreals[0] else 0) \
+                | (0xFFFF0000 if i < mreals[1] else 0)
+            if i < m:
+                ka[k] = max(ka[k], _prmt(tk, hv & mask, 0x5410))
+                kb[k] = max(kb[k], _prmt(tk, hv & mask, 0x7610))
+            else:
+                pm[k] = _max_relu(pm[k], hv & mask)
+    out = []
+    for h in range(2):
+        cmax, crow = [], []
+        for k in range(W):
+            key = kb[k] if h else ka[k]
+            rmax, pmax = key >> 16, (pm[k] >> (16 * h)) & 0xFFFF
+            cmax.append(max(rmax, pmax))
+            crow.append(0xFFFF - (key & 0xFFFF) if rmax >= pmax
+                        else window._BIG)
+        limit = min((c for c in range(W) if terms[h] >= 0
+                     and c < rlens[h] and cmax[c] == terms[h]),
+                    default=window._BIG)
+        key, erow = 0, window._BIG
+        for c in range(W):
+            kk = cmax[c] << 8 | (255 - c)
+            if c < rlens[h] and c <= limit and kk > key:
+                key, erow = kk, crow[c]
+        best, ecol = key >> 8, 255 - (key & 255)
+        out.append((best, ecol if best > 0 else -1,
+                    erow if best > 0 else m - 1))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_k4_pair_model_matches_ref(seed):
+    """The bit-level model of a K4 pair whose halves have different
+    offsets, mreals (phantom bounds, and below m too) and terms (cut or
+    not) equals window_pass_ref on each half, on the engine's reverse
+    score table."""
+    rng = np.random.default_rng(100 + seed)
+    m = 37
+    rna = _rna(rng, m)
+    port = TorchScanEngine(rna, device="cpu")
+    port.setup_windows(rna)
+    qp = port._dev["qwin_rev"]
+    words = port._dev["wtab_rev"].numpy().view(np.uint32)
+    q = rules.SSW_ENC[rna[::-1]]
+    W = 20
+    for trial in range(8):
+        offs = rng.integers(0, m, 2).astype(np.int32)
+        if trial == 0:
+            offs[1] = offs[0]  # a pair that shares its start row
+        codes = rng.integers(0, 5, (2, W)).astype(np.uint8)
+        for h in range(2):  # copy the query from the offset on, mutated
+            n = min(m - offs[h], W)
+            piece = q[offs[h]:offs[h] + n].copy()
+            muts = rng.random(n) < 0.2
+            piece[muts] = rng.integers(0, 5, int(muts.sum()))
+            codes[h, :n] = piece
+        rlens = rng.integers(1, W + 1, 2).astype(np.int32)
+        mreals = (m + rng.integers(-12 if trial > 3 else 0, 16, 2)
+                  ).astype(np.int32)
+        free = window.window_pass_ref(
+            torch.from_numpy(codes), qp, torch.from_numpy(offs),
+            torch.full((2,), -1, dtype=torch.int32), torch.from_numpy(rlens),
+            torch.from_numpy(mreals), m).numpy()
+        # terms: none, or a column max the window reaches (a real cut)
+        terms = np.where(rng.random(2) < 0.3, -1,
+                         np.maximum(free[:, 0] - rng.integers(0, 6, 2), 0)
+                         ).astype(np.int32)
+        want = window.window_pass_ref(
+            torch.from_numpy(codes), qp, torch.from_numpy(offs),
+            torch.from_numpy(terms), torch.from_numpy(rlens),
+            torch.from_numpy(mreals), m).numpy()
+        got = _k4_pair_model(codes, offs, mreals, terms, rlens, words, m)
+        assert [tuple(r) for r in want.tolist()] == got, (trial, offs)
+
+
+def test_k4_pair_model_phantom_bound():
+    """A pair of one window under two phantom bounds, in both orders: the
+    bit-level model keeps each half's phantom max to its own mreal.  The
+    window is found by a seeded search for one whose ends the phantom rows
+    change (they can only through the terms cut, so such windows are
+    rare)."""
+    rng = np.random.default_rng(11)
+    m, W, R = 8, 10, 20000
+    rna = _rna(rng, m)
+    port = TorchScanEngine(rna, device="cpu")
+    port.setup_windows(rna)
+    qp = port._dev["qwin_fwd"]
+    words = port._dev["wtab_fwd"].numpy().view(np.uint32)
+    codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
+    offs = rng.integers(0, 3, R).astype(np.int32)
+    rlens = rng.integers(3, W + 1, R).astype(np.int32)
+    terms = rng.integers(3, 30, R).astype(np.int32)
+    ends = {mr: window.window_pass_ref(
+        torch.from_numpy(codes), qp,
+        *(torch.from_numpy(a) for a in (offs, terms, rlens)),
+        torch.full((R,), mr, dtype=torch.int32), m).numpy()
+        for mr in (m, m + 6)}
+    hit = np.flatnonzero((ends[m] != ends[m + 6]).any(1))
+    assert len(hit), "no window whose ends the phantom rows change"
+    i = int(hit[0])
+    for mreals in ((m + 6, m), (m, m + 6)):
+        got = _k4_pair_model(codes[[i, i]], offs[[i, i]],
+                             np.array(mreals, np.int32), terms[[i, i]],
+                             rlens[[i, i]], words, m)
+        assert got == [tuple(ends[mr][i].tolist()) for mr in mreals]
