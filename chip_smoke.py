@@ -58,7 +58,8 @@ Phases, each printing one line with its seconds:
      card's int32 rate (SMs x 64 lanes x the max SM clock) and its bytes
      over 3.35 TB/s, and the window kernels' ptxas registers;
   6. trace   — one more default meg3_full run under torch.profiler: the
-     device time by kernel and copy, and their sum against the wall.
+     device time by kernel and copy, and their sum against the wall; it
+     fails if the profiler records no device event.
 
 Then one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
@@ -580,8 +581,8 @@ class Smoke:
         """The engine's 16-bit row gates: at m = K3_MAX_M uniform forward
         specs go to K3 and reverse specs to K4's 16-bit kernel, one query
         row longer both to K4's int32 kernel; all equal to the plain
-        version.  The launches of the longer query are window_general32's
-        in the report."""
+        version.  The launches of the longer query are printed here, not
+        in the report's main-path counts."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.window import (K3_MAX_M, both_strands,
@@ -597,6 +598,7 @@ class Smoke:
         base = np.array([self.rng.integers(0, lens[i] - r + 1)
                          for i, r in zip(seg_idx, rl)], np.int32)
         scan_idx = self.rng.integers(0, 48, rows).astype(np.int32)
+        long_launches = 0
         for m in (K3_MAX_M, K3_MAX_M + 1):
             eng = self.engine(self.dna(m))
             d = eng._dev
@@ -623,9 +625,7 @@ class Smoke:
                 require(counts[want_k] == 1 and sum(counts.values()) == 1,
                         f"gate, m={m}, {what}: launches {counts}, want "
                         f"{want_k}")
-                if want_k == "window_general32":
-                    self.launches[want_k] = self.launches.get(want_k, 0) \
-                        + counts[want_k]
+                long_launches += counts["window_general32"]
                 cols = [torch.from_numpy(a).to(self.dev) for a in (
                     seg_idx, scan_idx, base, spec["dirn"], rl, offs, terms,
                     mreals)]
@@ -639,6 +639,10 @@ class Smoke:
                              want, f"gate m={m} {what}")
                 print(f"  gate, m={m}: {what} specs on {want_k} only, "
                       f"{rows} rows equal")
+        # no golden query is that long, so the kernels line gives
+        # window_general32 its main-path count, 0
+        print(f"  window_general32 launches in the gate checks (not a main "
+              f"path): {long_launches}")
 
     # -- K6 --------------------------------------------------------------
 
@@ -1097,7 +1101,7 @@ class Smoke:
         every pair: its columns x its rows from the lower offset) against
         the cells its bound counts."""
         np = self.np
-        from fasim_tpu_torch.kernels.window import (K4_SHORT, pair_order,
+        from fasim_tpu_torch.kernels.window import (K4_SHORT, offset_order,
                                                     window_general)
 
         span = np.maximum(spec["mreals"], m) - np.maximum(spec["offs"], 0)
@@ -1112,8 +1116,8 @@ class Smoke:
             top = np.maximum(part["mreals"].cpu().numpy(), m)
             rl = part["rlens"].cpu().numpy().astype(np.int64)
             need = int((rl * (top - offs)).sum())
-            order, n_first = pair_order(part["rlens"], part["offs"], m,
-                                        K4_SHORT[W])
+            order, n_first = offset_order(part["rlens"], part["offs"], m,
+                                          K4_SHORT[W])
             order = order.cpu().numpy()
             n = int(n_first)
             swept = 0
@@ -1205,10 +1209,8 @@ class Smoke:
             if evt.device_type == DeviceType.CUDA:
                 busy_us[evt.name] += evt.time_range.elapsed_us()
                 count[evt.name] += 1
-        if not busy_us:
-            print("  meg3_full device time: not measured (the profiler "
-                  "recorded no device events)")
-            return
+        require(len(busy_us) > 0, "meg3_full under torch.profiler: the "
+                "profiler recorded no device events")
         busy = sum(busy_us.values()) / 1e6
         print(f"  meg3_full (cli) under torch.profiler: byte-identical, wall "
               f"{wall:.3f} s, device busy {busy:.3f} s summed over kernels "

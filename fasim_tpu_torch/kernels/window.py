@@ -14,8 +14,8 @@ longer than K3_MAX_M rows take K4's int32 kernel csrc/window.cu
 PyTorch version, ported from kernels/xla.py:window_pass_xla.
 
 Also here: the window query rows (`window_qp`, xla.py:_window_qp), the
-per-row score table of K3 and K4 (`score_table`) and their row order
-(`pair_order`), and the device-side window gather
+per-row score table of K3 and K4 (`score_table`) and their row orders
+(`pair_order`, `offset_order`), and the device-side window gather
 (`gather_window_codes`, the gather of tpu.py:_wspecs_call /
 _wspecs_fwd_call and xla.py:build_window_codes).
 """
@@ -92,27 +92,34 @@ def score_table(qp: torch.Tensor) -> torch.Tensor:
     return (s + TABLE_BIAS).to(torch.int8).contiguous()
 
 
-def pair_order(rlens: torch.Tensor, offs: torch.Tensor | None = None,
-               m: int = 0, short: int = NARROW
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The row order of K3's 64-column dispatches and of K4's: (order
-    int32[rows], the windows with rlen <= short first and then the
-    others, each part in its own order or, given offs, sorted by offset
-    clamped to [0, m] (stable; the kernel starts an offset past m at m);
-    the count of the first part int32[1]).  The kernels pair order[2p]
-    and order[2p + 1], so K4's pairs mostly share their start row; all on
-    the device, with no host round trip.  The key takes the narrowest
-    integer type that holds it: a radix sort's passes grow with its
-    width."""
-    wide = rlens > short
-    if offs is None:
-        key = wide.to(torch.uint8)
-    else:
-        dt = torch.int16 if 2 * m + 1 <= torch.iinfo(torch.int16).max \
-            else torch.int32
-        key = offs.clamp(0, m).to(dt).add_(wide.to(dt), alpha=m + 1)
+def _pair_order(key: torch.Tensor, wide: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     order = torch.argsort(key, stable=True)
     return order.to(torch.int32), (~wide).sum(dtype=torch.int32).reshape(1)
+
+
+def pair_order(rlens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's row order of a 64-column dispatch: (order int32[rows], the
+    windows with rlen <= NARROW first and then the others, each part in
+    its own order (stable); the count of the first part int32[1]).  The
+    kernel pairs order[2p] and order[2p + 1]; all on the device, with no
+    host round trip."""
+    wide = rlens > NARROW
+    return _pair_order(wide.to(torch.uint8), wide)
+
+
+def offset_order(rlens: torch.Tensor, offs: torch.Tensor, m: int,
+                 short: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's row order: as `pair_order` with the windows with rlen <= short
+    first, each part sorted by offset clamped to [0, m] (the kernel starts
+    an offset past m at m), so that most of K4's pairs share their start
+    row.  The key takes the narrowest integer type that holds it: a radix
+    sort's passes grow with its width."""
+    wide = rlens > short
+    dt = torch.int16 if 2 * m + 1 <= torch.iinfo(torch.int16).max \
+        else torch.int32
+    key = offs.clamp(0, m).to(dt).add_(wide.to(dt), alpha=m + 1)
+    return _pair_order(key, wide)
 
 
 def both_strands(segs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -265,23 +272,21 @@ def window_fwd(codes: torch.Tensor, qp: torch.Tensor, tab: torch.Tensor,
 def window_general(codes: torch.Tensor, qp: torch.Tensor,
                    offs: torch.Tensor, terms: torch.Tensor,
                    rlens: torch.Tensor, mreals: torch.Tensor, m: int,
-                   tab: torch.Tensor | None = None) -> torch.Tensor:
-    """K4: ends int32[rows, 3] with per-row offs, terms and mreals.  CPU
-    tensors take `window_pass_ref`; CUDA tensors launch the 16-bit kernel
-    (counted in `window_general.launches`), which reads the query through
-    tab = score_table(qp) (the engine keeps it; built here when not
-    given), or, for m > K3_MAX_M, `window_general32`."""
+                   tab: torch.Tensor) -> torch.Tensor:
+    """K4: ends int32[rows, 3] with per-row offs, terms and mreals.  qp is
+    the window query rows, tab = score_table(qp) (the engine keeps both).
+    CPU tensors take `window_pass_ref` on qp; CUDA tensors launch the
+    16-bit kernel (counted in `window_general.launches`), which reads the
+    query through tab, or, for m > K3_MAX_M, `window_general32`."""
     if not _on_card("window_general", codes):
         return window_pass_ref(codes, qp, offs, terms, rlens, mreals, m)
     if m > K3_MAX_M:
         return window_general32(codes, qp, offs, terms, rlens, mreals, m)
     _check("window_general", codes, qp,
            {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
-    if tab is None:
-        tab = score_table(qp)
     _check_tab("window_general", tab, codes, m)
     rows, W = codes.shape
-    order, n_first = pair_order(rlens, offs, m, K4_SHORT[W])
+    order, n_first = offset_order(rlens, offs, m, K4_SHORT[W])
     out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
     _run("fasim_window_gen", codes, codes.data_ptr(), W, tab.data_ptr(),
          tab.shape[0], offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),

@@ -294,11 +294,11 @@ def test_window_kernels_reject_other_devices():
     codes = torch.zeros(2, 64, dtype=torch.uint8, device=meta)
     qp = torch.zeros(3, 128, dtype=torch.int32, device=meta)
     rows = torch.zeros(2, dtype=torch.int32, device=meta)
+    tab = torch.zeros(128, 8, dtype=torch.int8, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        window.window_fwd(codes, qp, torch.zeros(128, 8, dtype=torch.int8,
-                                                 device=meta), rows, 10, 16)
+        window.window_fwd(codes, qp, tab, rows, 10, 16)
     with pytest.raises(ValueError, match="unsupported device"):
-        window.window_general(codes, qp, rows, rows, rows, rows, 10)
+        window.window_general(codes, qp, rows, rows, rows, rows, 10, tab)
     with pytest.raises(ValueError, match="unsupported device"):
         window.window_general32(codes, qp, rows, rows, rows, rows, 10)
 
@@ -463,8 +463,8 @@ def test_pair_order_by_offset_round_trip(seed):
     rlens = rng.integers(1, W + 1, rows).astype(np.int32)
     offs = rng.integers(-2, m + 3, rows).astype(np.int32)
     offs[:8] = offs[8:16]  # ties
-    order, n = window.pair_order(torch.from_numpy(rlens),
-                                 torch.from_numpy(offs), m, short)
+    order, n = window.offset_order(torch.from_numpy(rlens),
+                                   torch.from_numpy(offs), m, short)
     assert order.dtype == torch.int32 and n.dtype == torch.int32
     want = sorted(range(rows), key=lambda i: (bool(rlens[i] > short),
                                               min(max(int(offs[i]), 0), m),
@@ -492,7 +492,8 @@ def test_k4_routes_by_query_length(m, want, monkeypatch):
                                                 m)))
     ints = torch.zeros(rows, dtype=torch.int32)
     out = window.window_general(torch.zeros(rows, 64, dtype=torch.uint8), qp,
-                                ints, ints - 1, ints + 20, ints + m, m)
+                                ints, ints - 1, ints + 20, ints + m, m,
+                                window.score_table(qp))
     assert out.shape == (rows, 3)
     assert entries == [want]
     gen = want == "fasim_window_gen"
