@@ -212,7 +212,7 @@ extern "C" {
 // order int32[rows] the rows in the order they are paired, sorted by
 // offset, and n_first int32[1] the count of the short windows that lead
 // it, rlen <= Wp / 2 for Wp 64 and <= 3 Wp / 4 otherwise
-// (kernels/window.py:pair_order, K4_SHORT); out int32[rows, 3].  Needs
+// (kernels/window.py:offset_order, K4_SHORT); out int32[rows, 3].  Needs
 // m <= 65536.
 int fasim_window_gen(const void* codes, int Wp, const void* tab,
                      int tab_rows, const void* offs, const void* mreals,
