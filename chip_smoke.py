@@ -13,8 +13,9 @@ Phases, each printing one line with its seconds:
   3. kernels — every kernel against its plain PyTorch version on the card,
      exact integer equality, on inputs made with numpy default_rng: K1
      scan_colmax and K7 scan_colmax16 (main-path batch, ragged,
-     byte-saturating GA-rich, impure with a U query, a NEAT1-length
-     query, a 50 kb segment; K7 against K1's plain version on the last),
+     byte-saturating GA-rich, impure with a U query, K1's strip edges at
+     m16 = 512, 528 and 1,040, a NEAT1-length query, a 50 kb segment; K7
+     against K1's plain version on the last), all in both alphabets,
      the engine's K7/K1 routing under FASIM_SCAN16=1 (odd T, out of the
      int16 gate, the full-prefix rerun), the candidate packing against
      its numpy mirror, K3 window_fwd on every width class (rlens of 32
@@ -47,16 +48,20 @@ Phases, each printing one line with its seconds:
      FASIM_WIN_V1=1 (K7, K6; no K1, K3 or K4); no run launches K4's int32
      kernel;
   5. times   — each kernel and its plain version at main-path shapes
-     (CUDA events around synchronized runs; K7 at K1's shape, K6 on K3's
-     forward and K4's reverse dispatch; on K3's dispatch also the int32
-     layout K3 had before (window_general32 with the uniform specs), K4
-     on those specs, and the dispatch's rlen histogram; on K4's dispatch
+     (CUDA events around synchronized runs; K1's ssw pass with its G
+     cells/s, the SASS count of its column block (sass_loop) and the
+     integer ops/s that gives, its resident warps an SM and waves, then
+     K1's threshold pass and K1 at NEAT1 length on the full batch (kernel
+     only) with its int32 bound; K7 at K1's shape, K6 on K3's forward and
+     K4's reverse dispatch; on K3's dispatch also the int32 layout K3 had
+     before (window_general32 with the uniform specs), K4 on those specs,
+     and the dispatch's rlen histogram; on K4's dispatch
      K4's int32 kernel, each width class's time, bound and swept cells,
      the histograms of the sweep spans and of the offset mismatches
      within pairs), each kernel's bound: the larger of
      the least integer operations its cells need (ops_per_cell) over the
      card's int32 rate (SMs x 64 lanes x the max SM clock) and its bytes
-     over 3.35 TB/s, and the window kernels' ptxas registers;
+     over 3.35 TB/s, and every kernel's ptxas registers;
   6. trace   — one more default meg3_full run under torch.profiler: the
      device time by kernel and copy, and their sum against the wall; it
      fails if the profiler records no device event.
@@ -127,6 +132,88 @@ def ptxas_registers() -> dict:
             regs[entry] = int(found.group(1))
             entry = None
     return regs
+
+
+# opcodes of a step loop that are no per-thread integer operation: shared,
+# global, local and constant memory, shuffles, branches and barriers,
+# special registers, and the uniform datapath (U...) and register moves
+# (IMAD.MOV), which other pipes carry
+NON_INTEGER = ("SHFL", "LDS", "LDG", "LDL", "LDC", "STG", "STS", "STL",
+               "BRA", "BSSY", "BSYNC", "WARPSYNC", "NOP", "EXIT", "BAR",
+               "S2R", "S2UR")
+
+
+# the DPX cell's own opcodes (csrc/sw_colmax.cuh:CellI32Dpx::step)
+CELL_OPS = ("PRMT", "VIADDMNMX", "VIADDMNMX.RELU", "VIMNMX", "VIMNMX3",
+            "VIADD", "IMAD.MOV.U32")
+
+
+def _integer_op(op: str) -> bool:
+    return not (op.split(".")[0] in NON_INTEGER or op.startswith("U")
+                or op.startswith("IMAD.MOV"))
+
+
+def sass_loop(kernel: str, text: str | None = None) -> dict:
+    """SASS counts of a scan kernel's step loop, from the first kernel whose
+    mangled name contains `kernel`, in `text` or else `cuobjdump -sass` of
+    the built library (build/kernels/libfasim_cuda.so).  The step loop is
+    the innermost loop (a backward BRA) around the kernel's first SHFL.UP;
+    in it, the column block is what a lane runs for a column in range: the
+    instructions between the innermost forward BRA around every
+    VIADDMNMX.RELU of the loop (one a cell) and its target.  Returns the
+    loop's instruction count, the block's instruction count,
+    cells, integer operations (_integer_op), register moves and the
+    cells' own instructions (CELL_OPS; the rest fetch the column), and the
+    block's count by opcode."""
+    import collections
+    import re
+
+    from fasim_tpu_torch.kernels import _build
+
+    if text is None:
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()),
+                                 "cuobjdump")
+        text = subprocess.run([cuobjdump, "-sass",
+                               str(_build.BUILD_DIR / _build.LIB_NAME)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    [body] = [f for f in funcs if f.split("\n", 1)[0].find(kernel) >= 0][:1]
+    ins = []
+    for line in body.splitlines():
+        found = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if found:
+            words = found.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            target = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)",
+                               found.group(2))
+            ins.append((int(found.group(1), 16), op,
+                        int(target.group(1), 16) if target else None))
+    shfl = next(a for a, op, _ in ins if op == "SHFL.UP")
+    _, lo, hi = min((a - t, t, a) for a, _, t in ins
+                    if t is not None and t <= shfl < a)
+    loop = [(a, op, t) for a, op, t in ins if lo <= a <= hi]
+    relu = [a for a, op, _ in loop if op == "VIADDMNMX.RELU"]
+    _, b_lo, b_hi = min((t - a, a, t) for a, _, t in loop
+                        if t is not None and a < relu[0] and t > relu[-1])
+    block = collections.Counter(op for a, op, _ in loop if b_lo < a < b_hi
+                                and op != "BSYNC")
+    return {"loop": len(loop), "block": sum(block.values()),
+            "cells": block["VIADDMNMX.RELU"],
+            "integer": sum(n for op, n in block.items() if _integer_op(op)),
+            "moves": sum(n for op, n in block.items()
+                         if op.startswith("IMAD.MOV")),
+            "cell_ops": sum(block[op] for op in CELL_OPS),
+            "opcodes": dict(block.most_common())}
+
+
+def short_name(entry: str) -> str:
+    """A kernel entry's mangled name without its namespace and parameter
+    list: scan_colmax_kernelILi13E."""
+    import re
+
+    found = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernelI.*?E)E", entry or "")
+    return found.group(1) if found else str(entry)
 
 
 class SmokeError(AssertionError):
@@ -277,10 +364,17 @@ class Smoke:
         _build.lib()
         print(f"built {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.1f} s")
+        # every kernel's registers are printed in phase 5; here the spills
         log = (_build.BUILD_DIR / "build.log").read_text()
+        regs = ptxas_registers()
+        entry = None
         for line in log.splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
-                print("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line and not line.strip().startswith("0 bytes"):
+                print(f"  ptxas: {short_name(entry)}: {line.strip()}")
+        print(f"  ptxas: {len(regs)} kernel entries, {min(regs.values())}-"
+              f"{max(regs.values())} registers")
 
     # -- phase 3 ---------------------------------------------------------
 
@@ -305,7 +399,8 @@ class Smoke:
         for alpha, thresh in (("ssw", False), ("thresh", True)):
             args = (bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
                     d[f"qp2_{alpha}"], eng.m16, thresh)
-            cm_k, gm_k = scan_colmax(*args)
+            cm_k, gm_k = scan_colmax(*args[:5], d[f"stab_{alpha}"],
+                                     *args[5:])
             cm_p, gm_p = scan_colmax_ref(*args)
             self.compare("scan_colmax", cm_k, cm_p, f"{name}/{alpha} colmax")
             self.compare("scan_colmax", gm_k, gm_p, f"{name}/{alpha} max")
@@ -318,7 +413,8 @@ class Smoke:
             if not thresh:
                 out = (gm_k, cm_k)
         print(f"  K1, K7 {name}: S={len(seqs)} N={segs.shape[1]} "
-              f"m={len(rna)} T=48 max={int(out[0].max())} equal"
+              f"m={len(rna)} m16={eng.m16} T=48 max={int(out[0].max())} "
+              "equal"
               + ("" if k7_plain else " (K7 against K1's plain version)"))
         return out, segs, lens, eng
 
@@ -377,6 +473,13 @@ class Smoke:
         _, _, _, eng_u = self.k1_case("impure + U query", rna_u, impure,
                                       1920)
         require(not eng_u.query_pure, "U query must disable fused mode")
+        # K1's strip edges: one full strip (m16 = 512), two strips with 48
+        # zero rows above row 0 (528), three strips (1,040), with N and
+        # lowercase bases
+        for m in (512, 527, 1033):
+            self.k1_case(f"strip edge m={m}", self.dna(m),
+                         [self.dna(int(n), b"ACGTNacgt")
+                          for n in self.rng.integers(1000, 2001, 6)], 2048)
         # 5 * min(22768, 5120) = 25,600: inside K7's gate, 45 strips
         self.k1_case("NEAT1-length query", self.dna(NEAT1_M),
                      [self.dna(5000) for _ in range(2)], 5120)
@@ -954,11 +1057,6 @@ class Smoke:
 
     def phase_times(self) -> None:
         np = self.np
-        torch = self.torch
-        from fasim_tpu_torch.kernels.pack import pack_candidates
-        from fasim_tpu_torch.kernels.scan import (
-            decode_bases, scan_colmax, scan_colmax16, scan_colmax16_ref,
-            scan_colmax_ref)
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
                                                     window_general32,
@@ -966,37 +1064,7 @@ class Smoke:
         from fasim_tpu_torch.kernels.window_v1 import (v1_rows, window_keys,
                                                        window_keys_ref)
 
-        rna, segs, lens = self.main_k1
-        eng = self.engine(rna)
-        d = eng._dev
-        segs_d = torch.from_numpy(segs).to(self.dev)
-        lens_d = torch.from_numpy(lens).to(self.dev)
-        bases, bases_rev = decode_bases(segs_d, lens_d)
-        args = (bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"],
-                eng.m16, False)
-        self.ms["scan_colmax"] = self.cuda_ms(lambda: scan_colmax(*args), 3)
-        self.plain_ms["scan_colmax"] = self.cuda_ms(
-            lambda: scan_colmax_ref(*args), 1, warm=False)
-        S, N = segs.shape
-        T = d["lut6_s"].shape[0]
-        self.work["scan_colmax"] = (
-            ops_per_cell("scan_colmax", eng.m16) * S * T * N * eng.m16,
-            2 * S * N + S * T * N + 4 * S * T + 4 * T * 7 + 16 * eng.m16)
-        print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
-              f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
-              f"{self.plain_ms['scan_colmax']:.3f} ms")
-        self.ms["scan_colmax16"] = self.cuda_ms(
-            lambda: scan_colmax16(*args), 3)
-        self.plain_ms["scan_colmax16"] = self.cuda_ms(
-            lambda: scan_colmax16_ref(*args), 1, warm=False)
-        self.work["scan_colmax16"] = self.work["scan_colmax"]
-        print(f"  K7 scan_colmax16, the same pass: kernel "
-              f"{self.ms['scan_colmax16']:.3f} ms, plain "
-              f"{self.plain_ms['scan_colmax16']:.3f} ms")
-        cm, gm = scan_colmax(*args)
-        pack_ms = self.cuda_ms(
-            lambda: pack_candidates(gm, cm, lens_d, eng.PACK_K), 5)
-        print(f"  pack_candidates (torch ops) on that batch: {pack_ms:.3f} ms")
+        self.k1_times()
 
         # the largest forward and reverse dispatch of the meg3sub64 batch
         k6_ms, k6_plain, k6_ops, k6_bytes = [], [], 0.0, 0
@@ -1090,8 +1158,111 @@ class Smoke:
         self.work["window_keys"] = (k6_ops, k6_bytes)
         self.k5_times()
         for name, regs in ptxas_registers().items():
-            if "window" in name:
-                print(f"  ptxas registers {name}: {regs}")
+            print(f"  ptxas registers {short_name(name)}: {regs}")
+
+    def k1_times(self) -> None:
+        """K1 on the main-path batch of phase 3: its ssw pass against the
+        plain version, its rates, its threshold pass, K1 at NEAT1 length;
+        K7 on the same ssw pass; the candidate packing of its output."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels.pack import pack_candidates
+        from fasim_tpu_torch.kernels.scan import (
+            decode_bases, scan_colmax, scan_colmax16, scan_colmax16_ref,
+            scan_colmax_ref)
+
+        rna, segs, lens = self.main_k1
+        eng = self.engine(rna)
+        d = eng._dev
+        segs_d = torch.from_numpy(segs).to(self.dev)
+        lens_d = torch.from_numpy(lens).to(self.dev)
+        bases, bases_rev = decode_bases(segs_d, lens_d)
+        args = (bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"],
+                eng.m16, False)
+        k1_args = (*args[:5], d["stab_ssw"], *args[5:])
+        self.ms["scan_colmax"] = self.cuda_ms(lambda: scan_colmax(*k1_args),
+                                              3)
+        self.plain_ms["scan_colmax"] = self.cuda_ms(
+            lambda: scan_colmax_ref(*args), 1, warm=False)
+        S, N = segs.shape
+        T = d["lut6_s"].shape[0]
+        cells = S * T * N * eng.m16
+        self.work["scan_colmax"] = (
+            ops_per_cell("scan_colmax", eng.m16) * cells,
+            2 * S * N + S * T * N + 4 * S * T + 4 * T * 7 + 16 * eng.m16)
+        print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
+              f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
+              f"{self.plain_ms['scan_colmax']:.3f} ms")
+        self.k1_rates(eng.m16, N, S * T, cells, self.ms["scan_colmax"])
+        thr_args = (bases, bases_rev, d["lut6_t"], d["istr"],
+                    d["qp2_thresh"], d["stab_thresh"], eng.m16, True)
+        thr_ms = self.cuda_ms(lambda: scan_colmax(*thr_args, want_cm=False),
+                              3)
+        print(f"  K1 scan_colmax, threshold-alphabet pass (thresholds only),"
+              f" the same batch: kernel {thr_ms:.3f} ms ("
+              f"{cells / thr_ms / 1e6:.1f} G cells/s; bound "
+              f"{self.bound(*self.work['scan_colmax'])[0]:.3f} ms)")
+        self.k1_neat1(bases, bases_rev, S, T, N)
+        self.ms["scan_colmax16"] = self.cuda_ms(
+            lambda: scan_colmax16(*args), 3)
+        self.plain_ms["scan_colmax16"] = self.cuda_ms(
+            lambda: scan_colmax16_ref(*args), 1, warm=False)
+        self.work["scan_colmax16"] = self.work["scan_colmax"]
+        print(f"  K7 scan_colmax16, the same pass: kernel "
+              f"{self.ms['scan_colmax16']:.3f} ms, plain "
+              f"{self.plain_ms['scan_colmax16']:.3f} ms")
+        cm, gm = scan_colmax(*k1_args)
+        pack_ms = self.cuda_ms(
+            lambda: pack_candidates(gm, cm, lens_d, eng.PACK_K), 5)
+        print(f"  pack_candidates (torch ops) on that batch: {pack_ms:.3f} ms")
+
+    def k1_rates(self, m16: int, N: int, pairs: int, cells: int,
+                 ms: float) -> None:
+        """K1's rates on a timed pass: G cells/s, the SASS count of its
+        column block (sass_loop: the cells' instructions and the column's
+        fetch) and the integer ops/s that block alone gives, and its
+        resident warps an SM (the CUDA occupancy calculator) with the
+        waves a batch of `pairs` one-warp blocks takes."""
+        from fasim_tpu_torch.kernels.scan import blocks_per_sm, sweep_rows
+
+        rows = sweep_rows(m16)
+        sass = sass_loop(f"scan_colmax_kernelILi{rows}E")
+        per_cell = sass["block"] / rows
+        int_cell = sass["integer"] / rows
+        sms = self.torch.cuda.get_device_properties(0).multi_processor_count
+        warps = blocks_per_sm(m16, N)
+        print(f"  K1 SASS at {rows} rows a lane: step loop "
+              f"{sass['loop']} instructions; column block {sass['block']} "
+              f"for {sass['cells']} cells, {per_cell:.2f} a cell, of them "
+              f"{int_cell:.2f} integer operations and "
+              f"{sass['moves'] / rows:.2f} moves; the cells' own "
+              f"{sass['cell_ops'] / rows:.2f} a cell; by opcode "
+              + ", ".join(f"{k} {v}" for k, v in sass["opcodes"].items()))
+        print(f"  K1 rates: {cells / ms / 1e6:.1f} G cells/s, "
+              f"{cells * int_cell / ms * 1e3:.4g} integer ops/s in the "
+              f"column block alone (int32 rate {self.int32_ops:.4g}); "
+              f"{warps} resident warps an SM, {pairs} pairs = "
+              f"{pairs / (warps * sms):.3f} waves on {sms} SMs; int32-form "
+              f"floor (7 a cell) {self.bound(7 * cells, 0)[0]:.3f} ms")
+
+    def k1_neat1(self, bases, bases_rev, S: int, T: int, N: int) -> None:
+        """K1 at NEAT1 length (m = 22,767, 45 strips) on the full
+        64-segment batch, ssw pass, kernel only (the plain version would
+        take minutes), against its int32 bound."""
+        from fasim_tpu_torch.kernels.scan import scan_colmax
+
+        eng = self.engine(self.dna(NEAT1_M))
+        d = eng._dev
+        args = (bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"],
+                d["stab_ssw"], eng.m16, False)
+        ms = self.cuda_ms(lambda: scan_colmax(*args), 2)
+        cells = S * T * N * eng.m16
+        bound_ms, term = self.bound(
+            ops_per_cell("scan_colmax", eng.m16) * cells, 0)
+        print(f"  K1 scan_colmax at NEAT1 length, S={S} T={T} N={N} "
+              f"m={NEAT1_M} (m16 {eng.m16}), ssw pass: kernel {ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({term}, int32 forms), "
+              f"{cells / ms / 1e6:.1f} G cells/s")
+        self.k1_rates(eng.m16, N, S * T, cells, ms)
 
     def k4_sweep(self, spec, parts, qp, tab, m: int, cells: int) -> None:
         """What K4's 16-bit kernel sweeps on a dispatch, from the wrapper's
@@ -1273,6 +1444,7 @@ def main() -> int:
         return 1
     for run, wall in smoke.walls.items():
         print(f"wall {run}: {wall:.3f} s on {smoke.smi}")
+    print(smoke.smi)
     print(json.dumps(smoke.report()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

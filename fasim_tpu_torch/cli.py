@@ -19,7 +19,8 @@ JAX package's.  Framework flags keep the JAX package's --tpu- prefix.
 
 `-F` (exact SIM) runs on every engine.  Not ported yet (ROADMAP.md §1):
 the device SIM forward scan (--tpu-sim-device, FASIM_SIM_DEVICE=1), the
-streaming driver (--tpu-stream on) and more than one device.
+streaming driver (--tpu-stream on) and more than one device
+(--tpu-dp-devices 2 or more; 0 and 1 run one engine on cuda:0).
 """
 
 from __future__ import annotations
@@ -118,7 +119,8 @@ def show_help() -> None:
           "[-ds 15] [-lg 50] [-F] [-C N]\n"
           "engine: --tpu-engine cuda (default) | torch (CPU) | numpy "
           "(per-segment golden)\n"
-          "other: --tpu-segments-per-batch 64  --tpu-max-inflight 4  "
+          "other: --tpu-dp-devices 1  --tpu-segments-per-batch 64  "
+          "--tpu-max-inflight 4  "
           "--tpu-stdout-compat true  --tpu-profile true")
     sys.exit(1)
 
@@ -150,10 +152,14 @@ def main(argv: list[str] | None = None) -> int:
     if tpu.sim_device or os.environ.get("FASIM_SIM_DEVICE", "0") == "1":
         sys.exit("--tpu-sim-device / FASIM_SIM_DEVICE=1 (the -F forward "
                  "scan on the device) is not ported to fasim_tpu_torch yet "
-                 "(ROADMAP.md §1, module 8)")
+                 "(ROADMAP.md §1, item 5)")
     if tpu.stream == "on":
         sys.exit("--tpu-stream on is not ported to fasim_tpu_torch yet "
-                 "(ROADMAP.md §1, module 7)")
+                 "(ROADMAP.md §1, item 4)")
+    if tpu.dp_devices >= 2:
+        sys.exit(f"--tpu-dp-devices {tpu.dp_devices}: more than one GPU is "
+                 "not ported to fasim_tpu_torch yet (ROADMAP.md §1, item 6);"
+                 " 0 and 1 run one engine on cuda:0")
 
     def scan(p: Params, rna: np.ndarray):
         engine = make_engine(tpu, rna)

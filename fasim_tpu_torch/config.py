@@ -54,6 +54,11 @@ class TpuConfig:
     engine: str = "auto"
     # Number of DNA segments processed per kernel launch (batch dim).
     segments_per_batch: int = 64
+    # Devices to spread the batches over (fasim_tpu's data-parallel axis,
+    # where 0 means every local device).  The port runs one engine on
+    # cuda:0: 0 and 1 run so, and the CLI refuses 2 or more (more than one
+    # GPU is not ported yet).
+    dp_devices: int = 0
     # Print the per-stage wall-clock split on stderr after the run.
     profile: bool = False
     # Max device batches in flight (bounds host+device memory at genome

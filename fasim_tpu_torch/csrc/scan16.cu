@@ -12,9 +12,9 @@
 // maxima clamped to uint8 and the exact maximum over all columns.
 //
 // What bounds it on this card: integer ALU throughput, 7 s16x2 operations
-// per two cells (sw_colmax.cuh:CellS16x2), against K1's 13 int32
-// operations per cell, and no memory traffic beyond the segment bases and
-// the outputs.  Design: K1's wavefront over bands of query rows
+// per two cells (sw_colmax.cuh:CellS16x2), against the 7 int32 operations
+// per cell of K1's DPX cell (CellI32Dpx), and no memory traffic beyond the
+// segment bases and the outputs.  Design: K1's wavefront over bands of query rows
 // (sw_colmax.cuh), with the cell policy swapped: the pair's two code rows
 // become one row of prmt selectors in shared memory (2 bytes a column),
 // and each query row keeps an 8-entry int8 score table instead of its

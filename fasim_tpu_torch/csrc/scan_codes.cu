@@ -15,15 +15,17 @@
 // length, so there is no windowed prefix (fwin) and no escalation rerun.
 //
 // What bounds it on this card: int32 ALU throughput, 13 integer ops per
-// cell in the ssw alphabet and 14 in the threshold alphabet, and no memory
-// traffic beyond one read of the code row and one write of the int32
-// column maxima.  Design: K1's decomposition (sw_colmax.cuh): one warp per
-// code row, lanes owning bands of up to 16 query rows, the warp sweeping
+// cell in the ssw alphabet and 14 in the threshold alphabet (the
+// compare/select cell sw_colmax.cuh:CellI32, which K1 left for its DPX
+// cell; K5 is still on it), and no memory traffic beyond one read of the
+// code row and one write of the int32 column maxima.  Design: K1's
+// decomposition (sw_colmax.cuh): one warp per code row, lanes owning
+// bands of up to 16 query rows, the warp sweeping
 // the columns as a diagonal wavefront with exact F; queries taller than
 // 512 rows run in strips through a global scratch row.  The code row is
 // read once into shared memory; in the threshold alphabet T and U are
 // folded into one code there (and maska rows match it), which gives
-// _score_col's scores with K1's compare/select.  With few rows (the
+// _score_col's scores with CellI32's compare/select.  With few rows (the
 // per-segment path: one segment, 48 rows) only 48 warps run on 132 SMs.
 #include <cuda_runtime.h>
 

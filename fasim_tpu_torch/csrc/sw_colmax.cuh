@@ -17,8 +17,17 @@
 // a global scratch row read back by the next strip.  The bottom lane of
 // the last strip owns the finished column max.
 //
-// The cell arithmetic is a policy: CellI32 (one int32 cell per register,
-// K1 and K5) or CellS16x2 (two int16 cells per register, K7).
+// The cell arithmetic is a policy:
+//   * CellI32Dpx (K1): one int32 cell per register on Hopper's DPX forms,
+//     7 operations a cell in either alphabet.  A row is one of at most 8
+//     score classes; the column's code picks an 8-byte table of the classes'
+//     scores + 16 from shared memory once per column, and each row's prmt
+//     selector picks its class's byte.  The cell keeps G = H - 16, also in
+//     the hand-offs and the scratch row.  K1 fixes the rows per lane at
+//     compile time (sweep_columns_fixed), with zero-score rows above row 0.
+//   * CellI32 (K5): one int32 cell per register, the score by compare and
+//     select from the row's (q, hi, lo, nv), 13 or 14 integer operations.
+//   * CellS16x2 (K7): two int16 cells per register, s16x2 DPX forms.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,6 +80,56 @@ struct CellI32 {
     w.h = hv;
     w.e = ev;
     hu = hv;
+    cm = max(cm, hv);
+  }
+};
+
+// int32 cells on Hopper's DPX forms.  A query row is one of at most 8 score
+// classes (class 0 scores 0 for every code: the phantom rows and the rows
+// sweep_columns_fixed adds above row 0); a column word is the 8-byte table
+// of the classes' scores + 16 for the column's code, and a row keeps the
+// prmt selector of its class, which sign-extends that byte to 32 bits.
+// The cell keeps G = H - 16: the table's + 16 makes G the diagonal operand
+// and both gaps read G, so a cell costs 7 operations: the score (prmt), E
+// and F (one __viaddmax each), H (__viaddmax_relu of the diagonal and E,
+// then a max with F), G and the column max.  No overflow: G >= -16, a table
+// byte <= 21, and E, F >= -20 after the first row and column.
+struct CellI32Dpx {
+  using Word = int;
+  struct Row {
+    int g, e;
+    unsigned sel;
+  };
+  static constexpr int kTop = kNeg;        // F above query row 0
+  static constexpr int kH0 = -kGapOpen;    // G of H = 0
+
+  // byte k of the 8-byte table, its sign in the other three bytes
+  static __host__ __device__ constexpr unsigned selector(int k) {
+    return static_cast<unsigned>(k | (k | 8) << 4 | (k | 8) << 8 |
+                                 (k | 8) << 12);
+  }
+  __device__ __forceinline__ static Row row(int k) {
+    return Row{kH0, 0, selector(k)};
+  }
+  __device__ __forceinline__ static int zero_query() { return 0; }
+  __device__ __forceinline__ static int carry_in(int g) { return g; }
+  __device__ __forceinline__ static int carry_out(int gu) { return gu; }
+
+  // As CellI32::step with every H word in G form: diag is G(r-1, j-1) on
+  // entry and G(r, j-1) on exit, gu G(r-1, j) -> G(r, j); cm takes H.
+  __device__ __forceinline__ static void step(Row& w, uint2 t, int& diag,
+                                              int& gu, int& f, int& cm) {
+    int s;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(s) : "r"(t.x), "r"(t.y),
+        "r"(w.sel));
+    const int ev = __viaddmax_s32(w.e, -kGapExtend, w.g);
+    const int tmp = __viaddmax_s32_relu(diag, s, ev);
+    f = __viaddmax_s32(f, -kGapExtend, gu);
+    const int hv = max(tmp, f);
+    diag = w.g;
+    w.g = hv - kGapOpen;
+    w.e = ev;
+    gu = w.g;
     cm = max(cm, hv);
   }
 };
@@ -139,6 +198,16 @@ struct CellS16x2 {
   }
 };
 
+// Strips and rows per lane of a query of m16 rows: the rows spread evenly
+// over the strips, so that the last one is not mostly idle.
+__host__ __device__ inline int sweep_strips(int m16) {
+  return (m16 + kWarp * kMaxRows - 1) / (kWarp * kMaxRows);
+}
+__host__ __device__ inline int sweep_rows(int m16) {
+  const int nstrips = sweep_strips(m16);
+  return (m16 + kWarp * nstrips - 1) / (kWarp * nstrips);
+}
+
 // codes: the row's N codes (shared memory, written before the call and
 // followed by a __syncwarp); load(row) -> QueryRow for rows < m16; bnd:
 // Word[3, N] scratch (read only with more than one strip); emit(j, cm)
@@ -150,9 +219,8 @@ __device__ __forceinline__ void sweep_columns(const typename Cell::Code* codes,
                                               Load load, Emit emit) {
   using Word = typename Cell::Word;
   const int lane = threadIdx.x % kWarp;
-  // spread the rows evenly over the strips so the last one is not mostly idle
-  const int nstrips = (m16 + kWarp * kMaxRows - 1) / (kWarp * kMaxRows);
-  const int rpt = (m16 + kWarp * nstrips - 1) / (kWarp * nstrips);
+  const int nstrips = sweep_strips(m16);
+  const int rpt = sweep_rows(m16);
   Word* bh = bnd;  // used only with >1 strip
   Word* bf = bh + N;
   Word* bc = bf + N;
@@ -208,6 +276,115 @@ __device__ __forceinline__ void sweep_columns(const typename Cell::Code* codes,
       // orders the scratch-row writes of one strip before the next strip's
       // reads (the same warp, other lanes)
       __syncwarp();
+    }
+  }
+}
+
+// K1's sweep: sweep_columns' wavefront with every lane stepping exactly
+// kRows == sweep_rows(m16) rows (the caller dispatches on it), so the row
+// loop is straight code.  The rows the strips hold beyond m16 go above row
+// 0 as rows of Cell::zero_query(), which score 0: such a row keeps H = 0
+// under a top boundary of H = 0 (diag + 0, E and F <= 0) and hands row 0
+// F = -16, which it gets from H(-1, j) = 0 anyway, so the DP and every
+// column max are unchanged.  The strip hand-off goes through the global
+// scratch row in blocks of 32 columns, one column a lane, staged in
+// shared memory: lane 0 reads the row above the strip from the staging
+// block (the next block is fetched 32 steps ahead), lane 31 writes its
+// outputs into the other staging block, and every 32 columns the warp
+// stores that block, so no step branches on the lane.
+//
+// col(j): column j's word for Cell::step (a call after the caller's codes
+// are written and a __syncwarp); load(row) -> the argument of Cell::row
+// for rows < m16;
+// bnd: Word[3, N] scratch (read only with more than one strip); emit(j,
+// cm) runs on lane j % 32 for every column j, 32 columns at a time.
+template <class Cell, int kRows, class Col, class Load, class Emit>
+__device__ __forceinline__ void sweep_columns_fixed(
+    Col col, int N, int m16, typename Cell::Word* bnd, Load load,
+    Emit emit) {
+  using Word = typename Cell::Word;
+  __shared__ Word stage_in[3][kWarp];   // H, F, column max above the strip
+  __shared__ Word stage_out[3][kWarp];  // lane 31's H, F, column max
+  const int lane = threadIdx.x % kWarp;
+  const int nstrips = sweep_strips(m16);
+  const int pad = nstrips * kWarp * kRows - m16;  // zero rows above row 0
+  Word* bh = bnd;  // used only with >1 strip
+  Word* bf = bh + N;
+  Word* bc = bf + N;
+  for (int strip = 0; strip < nstrips; ++strip) {
+    const int row0 = (strip * kWarp + lane) * kRows - pad;
+    typename Cell::Row w[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      w[r] = Cell::row(row0 + r >= 0 ? load(row0 + r) : Cell::zero_query());
+    const bool first = strip == 0;
+    const bool last = strip == nstrips - 1;
+    Word up_prev = Cell::kH0;  // H of the row above the band, last column
+    Word out_h = Cell::kH0, out_f = Cell::kTop, out_c = 0;
+    // the scratch row's next block, column 32 * block + lane
+    Word next_h = Cell::kH0, next_f = Cell::kTop, next_c = 0;
+    if (!first && lane < N) {
+      next_h = bh[lane];
+      next_f = bf[lane];
+      next_c = bc[lane];
+    }
+    for (int step = 0; step < N + kWarp - 1; ++step) {
+      const int k = step % kWarp;
+      if (!first && k == 0) {
+        __syncwarp();
+        stage_in[0][lane] = next_h;
+        stage_in[1][lane] = next_f;
+        stage_in[2][lane] = next_c;
+        const int jn = step + kWarp + lane;
+        if (jn < N) {
+          next_h = bh[jn];
+          next_f = bf[jn];
+          next_c = bc[jn];
+        }
+        __syncwarp();
+      }
+      Word in_h = __shfl_up_sync(kFull, out_h, 1);
+      Word in_f = __shfl_up_sync(kFull, out_f, 1);
+      Word in_c = __shfl_up_sync(kFull, out_c, 1);
+      if (lane == 0) {  // column step: the top boundary or the strip above
+        in_h = first ? Cell::kH0 : stage_in[0][k];
+        in_f = first ? Cell::kTop : stage_in[1][k];
+        in_c = first ? 0 : stage_in[2][k];
+      }
+      const int j = step - lane;
+      if (j >= 0 && j < N) {
+        const auto c = col(j);
+        Word diag = up_prev;
+        up_prev = in_h;
+        Word hu = Cell::carry_in(in_h), f = in_f, cm = in_c;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) Cell::step(w[r], c, diag, hu, f, cm);
+        out_h = Cell::carry_out(hu);
+        out_f = f;
+        out_c = cm;
+      }
+      const int j31 = step - (kWarp - 1);  // lane 31's column
+      if (j31 >= 0) {
+        if (lane == kWarp - 1) {
+          stage_out[0][j31 % kWarp] = out_h;
+          stage_out[1][j31 % kWarp] = out_f;
+          stage_out[2][j31 % kWarp] = out_c;
+        }
+        if (j31 % kWarp == kWarp - 1 || j31 == N - 1) {
+          __syncwarp();
+          const int jb = j31 - j31 % kWarp + lane;
+          if (jb <= j31) {
+            if (last) {
+              emit(jb, stage_out[2][lane]);
+            } else {
+              bh[jb] = stage_out[0][lane];
+              bf[jb] = stage_out[1][lane];
+              bc[jb] = stage_out[2][lane];
+            }
+          }
+          __syncwarp();
+        }
+      }
     }
   }
 }

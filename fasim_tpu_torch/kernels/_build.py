@@ -35,8 +35,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (restype is c_int for all but the error string)
 SIGNATURES = {
-    "fasim_scan_colmax": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _P, _P, _P],
+    "fasim_scan_colmax": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P,
+                          _P, _P, _P],
+    "fasim_scan_blocks_per_sm": [_I, _I],
     "fasim_scan_colmax16": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P],
     "fasim_scan_strip_rows": [],

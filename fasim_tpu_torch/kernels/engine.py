@@ -18,7 +18,9 @@ engine itself with the `numpy_engine` contract (`__call__`, built on
 
 Derived from qwin_fwd and qwin_rev whenever they are set, and kept on the
 device only: wtab_fwd and wtab_rev int8[mpw, 8], the per-row score tables
-(`score_table`) that K3 and K4 read.
+(`score_table`) that K3 and K4 read.  Likewise from qp2_ssw and
+qp2_thresh: stab_ssw and stab_thresh uint8[64 + mp2], K1's score-class
+tables (`scan_table`).
 
 The engine runs on cuda:0 unless constructed with device="cpu".  On a
 CUDA device every device pass is a hand-written kernel; on the CPU the
@@ -45,7 +47,8 @@ from ..rules import SSW_ENC, THRESH_ENC
 
 from .pack import pack_candidates
 from .scan import (N_BASE, PURE, PURE_OR_PAD, decode_bases, make_lut6,
-                   make_qp2, reverse_prefix, scan_colmax, scan_colmax16)
+                   make_qp2, reverse_prefix, scan_colmax, scan_colmax16,
+                   scan_table)
 from .scan_codes import apply_byte_break, make_qprops, scan_codes_colmax
 from .window import (K3_MAX_M, WIDTHS, both_strands, gather_window_codes,
                      score_table, width_class, window_fwd, window_general,
@@ -111,6 +114,10 @@ class TorchScanEngine:
             if key in tables:
                 self._dev[key.replace("qwin", "wtab")] = score_table(
                     self._dev[key])
+        for key in ("qp2_ssw", "qp2_thresh"):
+            if key in tables:
+                self._dev[key.replace("qp2", "stab")] = scan_table(
+                    self._dev[key], key == "qp2_thresh")
 
     def state(self) -> dict[str, np.ndarray]:
         """Copies of the engine's tables (numpy)."""
@@ -228,18 +235,21 @@ class TorchScanEngine:
         T = d["istr"].shape[0]
         ok16 = (self.scan16 and T % 2 == 0
                 and 5 * min(self.m16, segs.shape[1]) <= 30000)
-        ssw = scan_colmax16 if ok16 and not (fused and full_prefix) \
-            else scan_colmax
-        cm, gm = ssw(bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"],
-                     self.m16, thresh_alphabet=False)
+
+        def scan(alpha, k7, want_cm=True):
+            args = (bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
+                    d[f"qp2_{alpha}"])
+            if k7:
+                return scan_colmax16(*args, self.m16, alpha == "thresh",
+                                     want_cm=want_cm)
+            return scan_colmax(*args, d[f"stab_{alpha}"], self.m16,
+                               alpha == "thresh", want_cm=want_cm)
+
+        cm, gm = scan("ssw", ok16 and not (fused and full_prefix))
         if not fused:
             # query U/N or segment bytes outside ACGT: the threshold
             # alphabet scores them differently, so it needs its own pass
-            thresh = scan_colmax16 if ok16 and not full_prefix \
-                else scan_colmax
-            _, gm = thresh(bases, bases_rev, d["lut6_t"], d["istr"],
-                           d["qp2_thresh"], self.m16, thresh_alphabet=True,
-                           want_cm=False)
+            _, gm = scan("thresh", ok16 and not full_prefix, want_cm=False)
         return gm, cm
 
     def _scan_segments_v1(self, segs: torch.Tensor, lengths: torch.Tensor,

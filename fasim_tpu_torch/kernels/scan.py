@@ -4,12 +4,13 @@ and thresholds.
 K1 replaces fasim_tpu/kernels/tpu.py:_scan2_kernel and the set-up around
 it in _device_scan2 / TpuScanEngine.  The kernel is csrc/scan.cu (its
 header says what bounds it on the card and how the design meets that);
-`scan_colmax_ref` is its plain PyTorch version, ported from
-kernels/xla.py:colmax_xla.  K7 replaces the int16 path of the same Pallas
-kernel (FASIM_SCAN16=1): the same outputs from a 16-bit DP, two pairs per
-32-bit register, for batches inside the int16 gate (`in_gate16`).  Its
-kernel is csrc/scan16.cu and `scan_colmax16_ref` its plain version, in
-torch.int16.  `scan_colmax` / `scan_colmax16` take the plain version for
+it reads the query through `scan_table`, which the engine builds once per
+alphabet; `scan_colmax_ref` is its plain PyTorch version, ported from
+kernels/xla.py:colmax_xla, and reads the query rows.  K7 replaces the
+int16 path of the same Pallas kernel (FASIM_SCAN16=1): the same outputs
+from a 16-bit DP, two pairs per 32-bit register, for batches inside the
+int16 gate (`in_gate16`).  Its kernel is csrc/scan16.cu and
+`scan_colmax16_ref` its plain version, in torch.int16.  `scan_colmax` / `scan_colmax16` take the plain version for
 CPU tensors and launch the kernel for CUDA tensors.
 
 Tables kept in the JAX package's shapes, so an engine's state compares
@@ -20,6 +21,10 @@ literally with a `TpuScanEngine`'s:
   * istr int32[T, 128]: 1 where the transform reads the reversed segment;
   * qp2 int32[5, mp2]: query rows q, hi, lo, nval (+ the TPU kernel's
     fbias row, unused here) per query position (`make_qp2`).
+
+K1's own table, derived from qp2 (`scan_table`), uint8[64 + mp2]: the
+query rows fall into at most SCAN_CLASSES score classes; bytes 0..63 hold
+s + TABLE_BIAS at 8 * code + class, the bytes after them each row's class.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from ..config import GAP_EXTEND, GAP_OPEN
 from . import _build
 
 _NEG = -(2 ** 30)
+SCAN_CLASSES = 8  # score classes of K1's table; class 0 scores 0
+TABLE_BIAS = 16  # K1's table holds s + 16 (its cell keeps H - 16)
 
 # base classes of the raw segment bytes: A0 C1 G2 T3 U4, anything else N5
 # (tpu.py _BASE6) — transferString translates only uppercase ACGTN, so the
@@ -88,6 +95,48 @@ def make_qp2(rna: np.ndarray, enc: np.ndarray, alphabet: str) -> np.ndarray:
     idx = np.arange(mp2)
     qp[4] = np.where(idx < m16, idx * GAP_EXTEND, _NEG)
     return qp
+
+
+def sweep_rows(m16: int) -> int:
+    """Query rows a lane of K1, K5 and K7 sweeps (sw_colmax.cuh:sweep_rows):
+    the strips of 32 lanes x 16 rows a query of m16 rows needs, the rows
+    spread evenly over them.  K1 is compiled for each count 1..16."""
+    nstrips = -(-m16 // (32 * 16))
+    return -(-m16 // (32 * nstrips))
+
+
+def scan_table(qp: torch.Tensor, thresh_alphabet: bool) -> torch.Tensor:
+    """K1's table uint8[64 + mp2] from the query rows qp2 int32[>=4, mp2]
+    of one alphabet.  The distinct score rows (a row's scores of the codes
+    0..7) are the classes, class 0 the all-zero row (the phantom rows' and
+    the kernel's rows above row 0); byte 8 * code + k is class k's score
+    of that code plus TABLE_BIAS (unused classes score 0), byte 64 + r
+    row r's class.
+    ValueError when the rows have more than SCAN_CLASSES classes (make_qp2
+    builds at most 6) or a score outside [-144, 111]."""
+    # each row's score of the codes 0..7, as scan_colmax_ref reads it
+    c = torch.arange(8, dtype=torch.int32, device=qp.device)[None, :]
+    s = torch.where(c == qp[0][:, None], qp[1][:, None], qp[2][:, None])
+    if thresh_alphabet:
+        s = torch.where(c == 5, qp[3][:, None], s)
+    if int(s.min()) < -128 - TABLE_BIAS or int(s.max()) > 127 - TABLE_BIAS:
+        raise ValueError("scan_table: a score does not fit the table's byte")
+    rows = torch.cat([torch.zeros_like(s[:1]), s])
+    uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
+    n = uniq.shape[0]
+    if n > SCAN_CLASSES:
+        raise ValueError(f"scan_table: {n} score classes (the zero row "
+                         f"included), the kernel takes {SCAN_CLASSES}")
+    # swap the zero row's class with class 0 (a swap is its own inverse)
+    perm = torch.arange(n, device=qp.device)
+    zero = int(inv[0])
+    perm[0], perm[zero] = zero, 0
+    scores = torch.zeros(SCAN_CLASSES, 8, dtype=torch.int32,
+                         device=qp.device)
+    scores[:n] = uniq[perm]
+    tab = (scores.t() + TABLE_BIAS).reshape(-1)
+    return torch.cat([tab, perm[inv[1:]].to(torch.int32)]).to(
+        torch.uint8).contiguous()
 
 
 def reverse_prefix(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -216,14 +265,10 @@ def scan_colmax16_ref(bases: torch.Tensor, bases_rev: torch.Tensor,
             cm.amax(2).to(torch.int32))
 
 
-def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
-            lut6, istr, qp, m16: int, thresh_alphabet: bool, want_cm: bool):
-    """Check the CUDA inputs, launch `entry` and count the launch on
-    `wrapper`: (colmax or None, per-pair max)."""
-    name = wrapper.__name__
+def _check_inputs(name: str, bases, bases_rev, lut6, istr, qp, m16: int):
     if bases.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {bases.device}")
-    S, N = bases.shape
+    N = bases.shape[1]
     T = lut6.shape[0]
     for arg, t, dt in (("bases", bases, torch.uint8),
                        ("bases_rev", bases_rev, torch.uint8),
@@ -237,6 +282,16 @@ def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
     if (bases_rev.shape != bases.shape or lut6.shape[1] < N_BASE
             or istr.shape[0] != T or qp.shape[0] < 4 or qp.shape[1] < m16):
         raise ValueError(f"{name}: inconsistent shapes")
+
+
+def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
+            lut6, istr, query: tuple, m16: int, want_cm: bool, *flags):
+    """Launch `entry` on checked CUDA inputs, its query arguments `query`
+    (K1: the table; K7: the qp rows and their stride) and trailing int
+    `flags`, and count the launch on `wrapper`: (colmax or None, per-pair
+    max)."""
+    S, N = bases.shape
+    T = lut6.shape[0]
     lib = _build.lib()
     dev = bases.device
     gm = torch.empty(S, T, dtype=torch.int32, device=dev)
@@ -249,8 +304,8 @@ def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             bases.data_ptr(), bases_rev.data_ptr(), lut6.data_ptr(),
-            lut6.stride(0), istr.data_ptr(), istr.stride(0), qp.data_ptr(),
-            qp.stride(0), S, T, N, m16, int(thresh_alphabet),
+            lut6.stride(0), istr.data_ptr(), istr.stride(0), *query,
+            S, T, N, m16, *flags,
             None if bnd is None else bnd.data_ptr(),
             None if cm is None else cm.data_ptr(), gm.data_ptr(),
             _build.stream_of(bases))
@@ -261,8 +316,11 @@ def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
 
 def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
                 lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
-                m16: int, thresh_alphabet: bool, want_cm: bool = True):
+                tab: torch.Tensor, m16: int, thresh_alphabet: bool,
+                want_cm: bool = True):
     """K1: (colmax uint8[S, T, N] or None, per-pair max int32[S, T]).
+    `tab` is `scan_table(qp, thresh_alphabet)`, which the kernel reads in
+    place of qp (lut6's engine codes must be < 8).
 
     CPU tensors take `scan_colmax_ref`; CUDA tensors launch the kernel
     (and count the launch in `scan_colmax.launches`); anything else
@@ -271,8 +329,14 @@ def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
         cm, gm = scan_colmax_ref(bases, bases_rev, lut6, istr, qp, m16,
                                  thresh_alphabet)
         return (cm if want_cm else None), gm
+    _check_inputs("scan_colmax", bases, bases_rev, lut6, istr, qp, m16)
+    if (tab.device != bases.device or tab.dtype != torch.uint8
+            or not tab.is_contiguous() or tab.dim() != 1
+            or tab.shape[0] < 8 * SCAN_CLASSES + m16):
+        raise ValueError("scan_colmax: tab must be scan_table's contiguous "
+                         f"uint8 tensor on {bases.device}")
     return _launch(scan_colmax, "fasim_scan_colmax", 1, bases, bases_rev,
-                   lut6, istr, qp, m16, thresh_alphabet, want_cm)
+                   lut6, istr, (tab.data_ptr(),), m16, want_cm)
 
 
 def scan_colmax16(bases: torch.Tensor, bases_rev: torch.Tensor,
@@ -286,9 +350,19 @@ def scan_colmax16(bases: torch.Tensor, bases_rev: torch.Tensor,
         cm, gm = scan_colmax16_ref(bases, bases_rev, lut6, istr, qp, m16,
                                    thresh_alphabet)
         return (cm if want_cm else None), gm
+    _check_inputs("scan_colmax16", bases, bases_rev, lut6, istr, qp, m16)
     _check_gate16(lut6.shape[0], m16, bases.shape[1])
     return _launch(scan_colmax16, "fasim_scan_colmax16", 2, bases,
-                   bases_rev, lut6, istr, qp, m16, thresh_alphabet, want_cm)
+                   bases_rev, lut6, istr, (qp.data_ptr(), qp.stride(0)),
+                   m16, want_cm, int(thresh_alphabet))
+
+
+def blocks_per_sm(m16: int, N: int) -> int:
+    """K1's resident one-warp blocks an SM at query length m16 and N
+    segment columns, from the CUDA occupancy calculator (needs the card)."""
+    n = _build.lib().fasim_scan_blocks_per_sm(m16, N)
+    _build.check(-min(n, 0), "fasim_scan_blocks_per_sm")
+    return n
 
 
 scan_colmax.launches = 0

@@ -128,15 +128,47 @@ def test_engine_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--tpu-dtype", "--tpu-interpret",
-                                  "--tpu-unroll", "--tpu-dp-devices"])
+                                  "--tpu-unroll"])
 def test_tpu_kernel_flags_are_unknown(flag):
-    """The JAX package's knobs of its TPU kernels and mesh have no
-    counterpart in the port: its CLI rejects them instead of ignoring
-    them."""
+    """The JAX package's knobs of its TPU kernels have no counterpart in
+    the port: its CLI rejects them instead of ignoring them."""
     from fasim_tpu_torch import cli
 
     with pytest.raises(SystemExit, match="unknown flag"):
         cli.parse_args(["-f1", "a.fa", flag, "1"])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2])
+def test_tpu_dp_devices_flag(n, monkeypatch):
+    """--tpu-dp-devices, a flag of the reference's help (fasim_tpu/cli.py):
+    0 and 1 run the batched driver on one engine on cuda:0, as without the
+    flag; 2 or more exit with a message (more than one GPU is not ported).
+    The engine and the driver are stand-ins: nothing is scanned."""
+    from fasim_tpu_torch import cli
+    from fasim_tpu_torch.kernels import engine as engine_mod
+    from fasim_tpu_torch.scan import batched
+
+    argv = ["-f1", "a.fa", "-f2", "b.fa", "--tpu-dp-devices", str(n)]
+    assert cli.parse_args(argv)[1].dp_devices == n
+    assert cli.parse_args(argv[:4])[1].dp_devices == 0
+    made, driven = [], []
+
+    class Engine:
+        def __init__(self, rna, device):
+            made.append(device)
+
+    monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(engine_mod, "TorchScanEngine", Engine)
+    monkeypatch.setattr(batched, "scan_file_batched",
+                        lambda p, eng, **kw: driven.append(eng))
+    monkeypatch.setattr(cli, "run", lambda p, tpu, scan: scan(p, None) or 0)
+    if n >= 2:
+        with pytest.raises(SystemExit, match="more than one GPU"):
+            cli.main(argv)
+        assert made == [] and driven == []
+    else:
+        assert cli.main(argv) == 0
+        assert made == ["cuda:0"] and len(driven) == 1
 
 
 def test_torch_engine_is_cpu():

@@ -183,11 +183,15 @@ def test_wide_segments_skip_packing():
 
 def test_kernel_wrappers_reject_other_devices():
     """A wrapper takes the plain version only for CPU tensors; any other
-    device must launch the kernel or raise — never fall back."""
+    device must launch the kernel or raise — never fall back.  K1's score
+    table is a required argument."""
     meta = torch.device("meta")
     bases = torch.zeros(1, 8, dtype=torch.uint8, device=meta)
     lut6 = torch.zeros(1, 128, dtype=torch.int32, device=meta)
     qp = torch.zeros(5, 128, dtype=torch.int32, device=meta)
+    tab = torch.zeros(64 + 128, dtype=torch.uint8, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
+        scan.scan_colmax(bases, bases, lut6, lut6, qp, tab, 16, False)
+    with pytest.raises(TypeError):
         scan.scan_colmax(bases, bases, lut6, lut6, qp, 16, False)
     assert scan.scan_colmax.launches == 0

@@ -83,6 +83,30 @@ def test_load_state_round_trip():
         assert torch.equal(x, y)
 
 
+def test_scan_tables_follow_qp2_through_load_state():
+    """K1's score-class tables (`scan_table`, device only, not in
+    `state()`) are rebuilt whenever qp2_ssw / qp2_thresh are set: the same
+    after `load_state` of an engine's state, and built from the JAX
+    engine's rows when loaded with those (a U and N query)."""
+    from fasim_tpu_torch.kernels.scan import scan_table
+
+    rna = _rna(9, 83, b"ACGTUN")
+    scans = rules.scan_list(0, 0)[:12]
+    a = _port(rna, scans)
+    b = TorchScanEngine(rna, device="cpu")
+    b.load_state(a.state())
+    c = TorchScanEngine(_rna(10, 83), device="cpu")
+    jax = _jax_tables(rna, scans)
+    c.load_state(jax)
+    for alpha in ("ssw", "thresh"):
+        key = f"stab_{alpha}"
+        assert key not in a.state()
+        want = scan_table(torch.from_numpy(jax[f"qp2_{alpha}"].copy()),
+                          alpha == "thresh")
+        for eng in (a, b, c):
+            assert torch.equal(eng._dev[key], want), key
+
+
 def test_engine_on_jax_state_equals_xla():
     """Both packages driven from identical state: the port engine loaded
     with the JAX tables reproduces XlaScanEngine on scans and windows."""
