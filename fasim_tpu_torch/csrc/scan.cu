@@ -32,7 +32,7 @@
 // guard; the strip hand-off moves
 // 32 columns at a time through shared memory, so no step branches on the
 // lane (sweep_columns_fixed).  A row keeps 3 registers (G, E, selector),
-// so the kernel fits the launch bound of 25 one-warp blocks an SM: a
+// so the kernel fits the launch bound of 24 one-warp blocks an SM: a
 // 64-segment batch (3,072 pairs) is one wave on 132 SMs.  The pair's
 // engine codes are decoded once into shared memory.
 #include <cuda_runtime.h>
@@ -47,8 +47,9 @@ namespace {
 using fasim::kMaxRows;
 using fasim::kWarp;
 
-// 25 one-warp blocks an SM: at most 65,536 / (25 * 32) -> 80 registers
-constexpr int kMinBlocks = 25;
+// 24 one-warp blocks an SM (3,168 on 132 SMs, one wave of a 64-segment
+// batch): ptxas keeps to 80 registers, with no spill at 16 rows a lane
+constexpr int kMinBlocks = 24;
 constexpr int kClasses = 8;
 
 template <int kRows>
