@@ -12,29 +12,28 @@
 // clamped to uint8 and the exact int32 maximum over all columns (the
 // threshold).
 //
-// What bounds it on this card: integer issue.  The pass reads no memory
+// What bounds it on this card: integer throughput.  The pass reads no memory
 // beyond the segment bases and writes only the outputs, so the cells'
 // operations set its time: 7 a cell at the least in int32 (the DPX forms;
-// chip_smoke.ops_per_cell), against the 13 (ssw) and 14 (threshold
-// alphabet) of the compare/select cell this kernel had before, whose rows
-// each also paid a guard branch.  Design: one warp per pair, sweeping the
-// segment columns as a diagonal wavefront over bands of query rows
-// (sw_colmax.cuh), so the vertical gap is exact at any length (there is no
-// 64-lane prefix window as on the TPU, and full_prefix changes nothing),
-// on the DPX cell sw_colmax.cuh:CellI32Dpx.  The rows fall into at most 8
-// score classes, whose 8 x 8-byte table of scores + 16 (scan.py:
-// scan_table) sits in shared memory; a column reads its code and its 8
-// bytes once, and each row scores by one prmt of its class's selector.
-// Both alphabets run the same kernel: the table holds the threshold
-// alphabet's N scores.  The rows per lane are a template argument
-// (sweep_rows(m16), 1..16) and the rows the strips hold beyond the m16
-// query rows sit above row 0 as zero-score rows, so the row loop has no
-// guard; the strip hand-off moves
-// 32 columns at a time through shared memory, so no step branches on the
-// lane (sweep_columns_fixed).  A row keeps 3 registers (G, E, selector),
-// so the kernel fits the launch bound of 24 one-warp blocks an SM: a
-// 64-segment batch (3,072 pairs) is one wave on 132 SMs.  The pair's
-// engine codes are decoded once into shared memory.
+// chip_smoke.ops_per_cell), against the 13 (ssw) and 14 (threshold alphabet)
+// of the compare/select cell this kernel had before, whose rows each also
+// paid a guard branch.  Design: one warp per pair, sweeping the segment
+// columns as a diagonal wavefront over bands of query rows (sw_colmax.cuh),
+// so the vertical gap is exact at any length (there is no 64-lane prefix
+// window as on the TPU, and full_prefix changes nothing), on the DPX cell
+// sw_colmax.cuh:CellI32Dpx.  The rows fall into at most 8 score classes,
+// whose 8 x 8-byte table of scores + 16 (scan.py:scan_table) sits in shared
+// memory; a column reads its code and its 8 bytes once, and each row scores
+// by one prmt of its class's selector.  Both alphabets run the same kernel:
+// the table holds the threshold alphabet's N scores.  The rows per lane are a
+// template argument (sweep_rows(m16), 1..16) and the rows the strips hold
+// beyond the m16 query rows sit above row 0 as zero-score rows, so the row
+// loop has no guard; the strip hand-off moves 32 columns at a time through
+// shared memory, so no step branches on the lane (sweep_columns_fixed).  A
+// row keeps 3 registers (G, E, selector), so the kernel fits the launch
+// bound of 24 one-warp blocks an SM: a 64-segment batch (3,072 pairs) is one
+// wave on 132 SMs.  The pair's engine codes are decoded once into shared
+// memory.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -171,8 +171,8 @@ def test_scan_table_scores_every_row_and_code(query, thresh):
 
 def test_scan_table_refuses_nine_classes():
     """Nine distinct score rows (8 rows and the zero row of the phantom
-    rows) do not fit the kernel's 8 classes: the table builder raises, as
-    it does for a score outside the table's byte; one row fewer fits."""
+    rows) do not fit the kernel's 8 classes: scan_table raises, as it
+    does for a score outside the table's byte; one row fewer fits."""
     qp = np.zeros((5, 128), np.int32)
     qp[0, :8] = np.arange(8) % 6
     qp[1, :8] = 5
