@@ -49,8 +49,9 @@ Phases, each printing one line with its seconds:
      kernel;
   5. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K1's ssw pass with its G
-     cells/s, the SASS count of its column block (sass_loop) and the
-     integer ops/s that gives, its resident warps an SM and waves, then
+     cells/s, the SASS count of its step loop a cell (sass_loop), the
+     integer ops/s that loop executes, the count of its column block
+     alone, its resident warps an SM and waves, then
      K1's threshold pass and K1 at NEAT1 length on the full batch (kernel
      only) with its int32 bound; K7 at K1's shape, K6 on K3's forward and
      K4's reverse dispatch; on K3's dispatch also the int32 layout K3 had
@@ -161,10 +162,10 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
     in it, the column block is what a lane runs for a column in range: the
     instructions between the innermost forward BRA around every
     VIADDMNMX.RELU of the loop (one a cell) and its target.  Returns the
-    loop's instruction count, the block's instruction count,
-    cells, integer operations (_integer_op), register moves and the
-    cells' own instructions (CELL_OPS; the rest fetch the column), and the
-    block's count by opcode."""
+    loop's instruction count and integer operations (_integer_op), the
+    block's instruction count, cells, integer operations, register moves
+    and the cells' own instructions (CELL_OPS; the rest fetch the column),
+    and the block's count by opcode."""
     import collections
     import re
 
@@ -198,7 +199,9 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
                         if t is not None and a < relu[0] and t > relu[-1])
     block = collections.Counter(op for a, op, _ in loop if b_lo < a < b_hi
                                 and op != "BSYNC")
-    return {"loop": len(loop), "block": sum(block.values()),
+    return {"loop": len(loop),
+            "loop_integer": sum(_integer_op(op) for _, op, _ in loop),
+            "block": sum(block.values()),
             "cells": block["VIADDMNMX.RELU"],
             "integer": sum(n for op, n in block.items() if _integer_op(op)),
             "moves": sum(n for op, n in block.items()
@@ -1217,32 +1220,39 @@ class Smoke:
 
     def k1_rates(self, m16: int, N: int, pairs: int, cells: int,
                  ms: float) -> None:
-        """K1's rates on a timed pass: G cells/s, the SASS count of its
-        column block (sass_loop: the cells' instructions and the column's
-        fetch) and the integer ops/s that block alone gives, and its
-        resident warps an SM (the CUDA occupancy calculator) with the
-        waves a batch of `pairs` one-warp blocks takes."""
-        from fasim_tpu_torch.kernels.scan import blocks_per_sm, sweep_rows
+        """K1's rates on a timed pass: G cells/s; the SASS count of the
+        step loop of the instantiation launched at m16 (sass_loop; one
+        iteration a step, a lane's `rows` cells), a cell and in integer
+        operations, and the integer ops/s the loop executes at that time;
+        the count of its column block alone (the cells' instructions and
+        the column's fetch); its resident warps an SM (the CUDA occupancy
+        calculator) with the waves a batch of `pairs` one-warp blocks
+        takes."""
+        from fasim_tpu_torch.kernels.scan import blocks_per_sm, kernel_rows
 
-        rows = sweep_rows(m16)
+        rows = kernel_rows(m16)
         sass = sass_loop(f"scan_colmax_kernelILi{rows}E")
-        per_cell = sass["block"] / rows
-        int_cell = sass["integer"] / rows
         sms = self.torch.cuda.get_device_properties(0).multi_processor_count
         warps = blocks_per_sm(m16, N)
-        print(f"  K1 SASS at {rows} rows a lane: step loop "
-              f"{sass['loop']} instructions; column block {sass['block']} "
-              f"for {sass['cells']} cells, {per_cell:.2f} a cell, of them "
-              f"{int_cell:.2f} integer operations and "
-              f"{sass['moves'] / rows:.2f} moves; the cells' own "
-              f"{sass['cell_ops'] / rows:.2f} a cell; by opcode "
+        print(f"  K1 SASS at {rows} rows a lane: step loop {sass['loop']} "
+              f"instructions, {sass['loop'] / rows:.2f} a cell, of them "
+              f"{sass['loop_integer']} integer operations, "
+              f"{sass['loop_integer'] / rows:.2f} a cell; its column block "
+              f"{sass['block']} for {sass['cells']} cells, "
+              f"{sass['block'] / rows:.2f} a cell, "
+              f"{sass['integer'] / rows:.2f} integer and "
+              f"{sass['moves'] / rows:.2f} moves, the cells' own "
+              f"{sass['cell_ops'] / rows:.2f}; block by opcode "
               + ", ".join(f"{k} {v}" for k, v in sass["opcodes"].items()))
+        loop_ops = cells * sass["loop_integer"] / rows / ms * 1e3
+        block_ops = cells * sass["integer"] / rows / ms * 1e3
         print(f"  K1 rates: {cells / ms / 1e6:.1f} G cells/s, "
-              f"{cells * int_cell / ms * 1e3:.4g} integer ops/s in the "
-              f"column block alone (int32 rate {self.int32_ops:.4g}); "
-              f"{warps} resident warps an SM, {pairs} pairs = "
-              f"{pairs / (warps * sms):.3f} waves on {sms} SMs; int32-form "
-              f"floor (7 a cell) {self.bound(7 * cells, 0)[0]:.3f} ms")
+              f"{loop_ops:.4g} integer ops/s in the step loop "
+              f"({block_ops:.4g} in its column block; int32 rate "
+              f"{self.int32_ops:.4g}); {warps} resident warps an SM, {pairs}"
+              f" pairs = {pairs / (warps * sms):.3f} waves on {sms} SMs; "
+              f"int32-form floor (7 a cell) "
+              f"{self.bound(7 * cells, 0)[0]:.3f} ms")
 
     def k1_neat1(self, bases, bases_rev, S: int, T: int, N: int) -> None:
         """K1 at NEAT1 length (m = 22,767, 45 strips) on the full

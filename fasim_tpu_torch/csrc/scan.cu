@@ -120,6 +120,10 @@ extern "C" {
 // row only for queries with m16 above it.
 int fasim_scan_strip_rows() { return kWarp * kMaxRows; }
 
+// Rows a lane of the kernel launched for query length m16: the template
+// argument kernel_for picks (chip_smoke.py counts that instantiation's SASS).
+int fasim_scan_rows(int m16) { return fasim::sweep_rows(m16); }
+
 const char* fasim_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

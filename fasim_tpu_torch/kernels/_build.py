@@ -41,6 +41,7 @@ SIGNATURES = {
     "fasim_scan_colmax16": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P],
     "fasim_scan_strip_rows": [],
+    "fasim_scan_rows": [_I],
     "fasim_scan_codes_colmax": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "fasim_window_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,

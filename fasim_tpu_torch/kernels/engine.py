@@ -19,8 +19,8 @@ engine itself with the `numpy_engine` contract (`__call__`, built on
 Derived from qwin_fwd and qwin_rev whenever they are set, and kept on the
 device only: wtab_fwd and wtab_rev int8[mpw, 8], the per-row score tables
 (`score_table`) that K3 and K4 read.  Likewise from qp2_ssw and
-qp2_thresh: stab_ssw and stab_thresh uint8[64 + mp2], K1's score-class
-tables (`scan_table`).
+qp2_thresh: stab_ssw and stab_thresh, K1's score-class tables
+(`ScanTable`s of uint8[64 + mp2], from `scan_table`).
 
 The engine runs on cuda:0 unless constructed with device="cpu".  On a
 CUDA device every device pass is a hand-written kernel; on the CPU the
@@ -46,9 +46,9 @@ from .. import rules
 from ..rules import SSW_ENC, THRESH_ENC
 
 from .pack import pack_candidates
-from .scan import (N_BASE, PURE, PURE_OR_PAD, decode_bases, make_lut6,
-                   make_qp2, reverse_prefix, scan_colmax, scan_colmax16,
-                   scan_table)
+from .scan import (N_BASE, PURE, PURE_OR_PAD, ScanTable, decode_bases,
+                   make_lut6, make_qp2, reverse_prefix, scan_colmax,
+                   scan_colmax16, scan_table)
 from .scan_codes import apply_byte_break, make_qprops, scan_codes_colmax
 from .window import (K3_MAX_M, WIDTHS, both_strands, gather_window_codes,
                      score_table, width_class, window_fwd, window_general,
@@ -94,7 +94,7 @@ class TorchScanEngine:
         self.m16 = _round_up(self.m, 16)
         self.query_pure = bool(PURE[rna].all())
         self._host: dict[str, np.ndarray] = {}
-        self._dev: dict[str, torch.Tensor] = {}
+        self._dev: dict[str, torch.Tensor | ScanTable] = {}
         self._set({"qp2_ssw": make_qp2(rna, SSW_ENC, "ssw"),
                    "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh"),
                    "qprops_ssw": make_qprops(rna, "ssw"),

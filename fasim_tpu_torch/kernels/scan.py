@@ -10,8 +10,9 @@ kernels/xla.py:colmax_xla, and reads the query rows.  K7 replaces the
 int16 path of the same Pallas kernel (FASIM_SCAN16=1): the same outputs
 from a 16-bit DP, two pairs per 32-bit register, for batches inside the
 int16 gate (`in_gate16`).  Its kernel is csrc/scan16.cu and
-`scan_colmax16_ref` its plain version, in torch.int16.  `scan_colmax` / `scan_colmax16` take the plain version for
-CPU tensors and launch the kernel for CUDA tensors.
+`scan_colmax16_ref` its plain version, in torch.int16.  `scan_colmax` /
+`scan_colmax16` take the plain version for CPU tensors and launch the
+kernel for CUDA tensors.
 
 Tables kept in the JAX package's shapes, so an engine's state compares
 literally with a `TpuScanEngine`'s:
@@ -22,12 +23,15 @@ literally with a `TpuScanEngine`'s:
   * qp2 int32[5, mp2]: query rows q, hi, lo, nval (+ the TPU kernel's
     fbias row, unused here) per query position (`make_qp2`).
 
-K1's own table, derived from qp2 (`scan_table`), uint8[64 + mp2]: the
-query rows fall into at most SCAN_CLASSES score classes; bytes 0..63 hold
-s + TABLE_BIAS at 8 * code + class, the bytes after them each row's class.
+K1's own table, derived from qp2 (`scan_table`), a `ScanTable`: its bytes
+uint8[64 + mp2] and the alphabet they score.  The query rows fall into at
+most SCAN_CLASSES score classes; bytes 0..63 hold s + TABLE_BIAS at
+8 * code + class, the bytes after them each row's class.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -97,16 +101,16 @@ def make_qp2(rna: np.ndarray, enc: np.ndarray, alphabet: str) -> np.ndarray:
     return qp
 
 
-def sweep_rows(m16: int) -> int:
-    """Query rows a lane of K1, K5 and K7 sweeps (sw_colmax.cuh:sweep_rows):
-    the strips of 32 lanes x 16 rows a query of m16 rows needs, the rows
-    spread evenly over them.  K1 is compiled for each count 1..16."""
-    nstrips = -(-m16 // (32 * 16))
-    return -(-m16 // (32 * nstrips))
+class ScanTable(NamedTuple):
+    """K1's query table (`scan_table`): the bytes the kernel reads and the
+    alphabet whose scores they hold, which `scan_colmax` checks against
+    its own `thresh_alphabet`."""
+    data: torch.Tensor
+    thresh_alphabet: bool
 
 
-def scan_table(qp: torch.Tensor, thresh_alphabet: bool) -> torch.Tensor:
-    """K1's table uint8[64 + mp2] from the query rows qp2 int32[>=4, mp2]
+def scan_table(qp: torch.Tensor, thresh_alphabet: bool) -> ScanTable:
+    """K1's table, uint8[64 + mp2], from the query rows qp2 int32[>=4, mp2]
     of one alphabet.  The distinct score rows (a row's scores of the codes
     0..7) are the classes, class 0 the all-zero row (the phantom rows' and
     the kernel's rows above row 0); byte 8 * code + k is class k's score
@@ -135,8 +139,8 @@ def scan_table(qp: torch.Tensor, thresh_alphabet: bool) -> torch.Tensor:
                          device=qp.device)
     scores[:n] = uniq[perm]
     tab = (scores.t() + TABLE_BIAS).reshape(-1)
-    return torch.cat([tab, perm[inv[1:]].to(torch.int32)]).to(
-        torch.uint8).contiguous()
+    return ScanTable(torch.cat([tab, perm[inv[1:]].to(torch.int32)]).to(
+        torch.uint8).contiguous(), thresh_alphabet)
 
 
 def reverse_prefix(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -316,27 +320,34 @@ def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
 
 def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
                 lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
-                tab: torch.Tensor, m16: int, thresh_alphabet: bool,
+                tab: ScanTable, m16: int, thresh_alphabet: bool,
                 want_cm: bool = True):
     """K1: (colmax uint8[S, T, N] or None, per-pair max int32[S, T]).
     `tab` is `scan_table(qp, thresh_alphabet)`, which the kernel reads in
-    place of qp (lut6's engine codes must be < 8).
+    place of qp (lut6's engine codes must be < 8); a table of the other
+    alphabet raises ValueError on every device.
 
     CPU tensors take `scan_colmax_ref`; CUDA tensors launch the kernel
     (and count the launch in `scan_colmax.launches`); anything else
     raises."""
+    if not isinstance(tab, ScanTable) \
+            or tab.thresh_alphabet != thresh_alphabet:
+        raise ValueError("scan_colmax: tab must be the ScanTable of the "
+                         f"{'threshold' if thresh_alphabet else 'ssw'} "
+                         "alphabet")
     if bases.device.type == "cpu":
         cm, gm = scan_colmax_ref(bases, bases_rev, lut6, istr, qp, m16,
                                  thresh_alphabet)
         return (cm if want_cm else None), gm
     _check_inputs("scan_colmax", bases, bases_rev, lut6, istr, qp, m16)
-    if (tab.device != bases.device or tab.dtype != torch.uint8
-            or not tab.is_contiguous() or tab.dim() != 1
-            or tab.shape[0] < 8 * SCAN_CLASSES + m16):
+    data = tab.data
+    if (data.device != bases.device or data.dtype != torch.uint8
+            or not data.is_contiguous() or data.dim() != 1
+            or data.shape[0] < 8 * SCAN_CLASSES + m16):
         raise ValueError("scan_colmax: tab must be scan_table's contiguous "
-                         f"uint8 tensor on {bases.device}")
+                         f"uint8 bytes on {bases.device}")
     return _launch(scan_colmax, "fasim_scan_colmax", 1, bases, bases_rev,
-                   lut6, istr, (tab.data_ptr(),), m16, want_cm)
+                   lut6, istr, (data.data_ptr(),), m16, want_cm)
 
 
 def scan_colmax16(bases: torch.Tensor, bases_rev: torch.Tensor,
@@ -355,6 +366,12 @@ def scan_colmax16(bases: torch.Tensor, bases_rev: torch.Tensor,
     return _launch(scan_colmax16, "fasim_scan_colmax16", 2, bases,
                    bases_rev, lut6, istr, (qp.data_ptr(), qp.stride(0)),
                    m16, want_cm, int(thresh_alphabet))
+
+
+def kernel_rows(m16: int) -> int:
+    """Rows a lane of the K1 kernel launched at query length m16: its
+    template argument, sw_colmax.cuh:sweep_rows (needs the card)."""
+    return _build.lib().fasim_scan_rows(m16)
 
 
 def blocks_per_sm(m16: int, N: int) -> int:

@@ -189,7 +189,8 @@ def test_kernel_wrappers_reject_other_devices():
     bases = torch.zeros(1, 8, dtype=torch.uint8, device=meta)
     lut6 = torch.zeros(1, 128, dtype=torch.int32, device=meta)
     qp = torch.zeros(5, 128, dtype=torch.int32, device=meta)
-    tab = torch.zeros(64 + 128, dtype=torch.uint8, device=meta)
+    tab = scan.ScanTable(torch.zeros(64 + 128, dtype=torch.uint8,
+                                     device=meta), False)
     with pytest.raises(ValueError, match="unsupported device"):
         scan.scan_colmax(bases, bases, lut6, lut6, qp, tab, 16, False)
     with pytest.raises(TypeError):

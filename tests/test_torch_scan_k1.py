@@ -7,9 +7,10 @@ the same plain version there).  The model repeats its arithmetic step for
 step: the prmt byte pick with sign replication from the column's 8-byte
 table, the cell's G = H - 16 with the table's s + 16, the relu on the
 diagonal max only, the F sentinel kTop above row 0, the balanced rows per
-lane of `sweep_rows`, the zero-score rows the kernel adds above row 0,
-the lane hand-off (a shuffle up by one lane) and the strip hand-off through
-the scratch row.  Every output is an integer: the tolerance is 0.
+lane of sw_colmax.cuh:sweep_rows, the zero-score rows the kernel adds
+above row 0, the lane hand-off (a shuffle up by one lane) and the strip
+hand-off through the scratch row.  Every output is an integer: the
+tolerance is 0.
 """
 
 import numpy as np
@@ -160,7 +161,9 @@ def test_scan_table_scores_every_row_and_code(query, thresh):
     rna = _seq(rng, 203, query)
     tpu = TpuScanEngine(rna, interpret=True)
     qp = np.array(tpu.qp2_thresh if thresh else tpu.qp2_ssw)
-    tab = scan.scan_table(torch.from_numpy(qp), thresh).numpy()
+    table = scan.scan_table(torch.from_numpy(qp), thresh)
+    assert table.thresh_alphabet == thresh
+    tab = table.data.numpy()
     assert tab.shape == (64 + qp.shape[1],)
     scores = tab[:64].reshape(8, 8).T.astype(np.int64) - 16  # [class, code]
     cls = tab[64:].astype(np.int64)
@@ -181,10 +184,34 @@ def test_scan_table_refuses_nine_classes():
     with pytest.raises(ValueError, match="classes"):
         scan.scan_table(torch.from_numpy(qp), False)
     ok = scan.scan_table(torch.from_numpy(qp[:, 1:]), False)  # 8 classes
-    assert int(ok[64:].max()) == 7
+    assert int(ok.data[64:].max()) == 7
     qp[1, 0] = 200
     with pytest.raises(ValueError, match="byte"):
         scan.scan_table(torch.from_numpy(qp), False)
+
+
+@pytest.mark.parametrize("thresh", [False, True])
+def test_scan_colmax_refuses_the_other_alphabets_table(thresh):
+    """The kernel reads only the table, the plain version only qp and the
+    alphabet flag: scan_colmax refuses a table of the other alphabet (or
+    bare bytes) on every device, so the two cannot score differently."""
+    rna = np.frombuffer(b"ACGTNUACGT", np.uint8).copy()
+    eng = TorchScanEngine(rna, device="cpu")
+    eng.setup_scans(rules.scan_list(0, 0)[:2])
+    segs = torch.from_numpy(np.frombuffer(b"ACGTACGTNN", np.uint8)[None]
+                            .copy())
+    bases, bases_rev = scan.decode_bases(
+        segs, torch.tensor([10], dtype=torch.int32))
+    d = eng._dev
+    alpha, other = ("thresh", "ssw") if thresh else ("ssw", "thresh")
+    args = (bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
+            d[f"qp2_{alpha}"])
+    cm, gm = scan.scan_colmax(*args, d[f"stab_{alpha}"], eng.m16, thresh)
+    want_cm, want_gm = scan.scan_colmax_ref(*args, eng.m16, thresh)
+    assert torch.equal(cm, want_cm) and torch.equal(gm, want_gm)
+    for wrong in (d[f"stab_{other}"], d[f"stab_{alpha}"].data):
+        with pytest.raises(ValueError, match="alphabet"):
+            scan.scan_colmax(*args, wrong, eng.m16, thresh)
 
 
 # one strip (m not a multiple of 16), m16 = 512 (one full strip), 528 (two
@@ -214,8 +241,38 @@ def test_k1_model_matches_ref(m, query, thresh):
     want_cm, want_max = scan.scan_colmax_ref(*args, eng.m16, thresh)
     codes = scan._pair_codes(bases, bases_rev, d[f"lut6_{alpha[0]}"],
                              d["istr"]).numpy()
-    got = _k1_model(codes, d[f"stab_{alpha}"].numpy(), eng.m16)
+    got = _k1_model(codes, d[f"stab_{alpha}"].data.numpy(), eng.m16)
     got = got.reshape(want_cm.shape)
     assert int(want_max.max()) >= 20
     np.testing.assert_array_equal(np.minimum(got, 255), want_cm.numpy())
     np.testing.assert_array_equal(got.max(-1), want_max.numpy())
+
+
+_SASS = """
+        Function : _ZN12_GLOBAL__N_118scan_colmax_kernelILi2EEEvPKh
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.U8 R3, [R0] ;
+        /*0020*/                   SHFL.UP PT, R2, R3, 0x1, RZ ;
+        /*0030*/               @P0 BRA 0x80 ;
+        /*0040*/                   PRMT R4, R5, R6, RZ ;
+        /*0050*/                   VIADDMNMX.RELU R7, R4, R8, R9, !PT ;
+        /*0060*/                   VIADDMNMX.RELU R10, R4, R8, R7, !PT ;
+        /*0070*/                   IMAD.MOV.U32 R8, RZ, RZ, R9 ;
+        /*0080*/                   STS [R1], R2 ;
+        /*0090*/               @P1 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_sass_loop_counts_the_step_loop():
+    """chip_smoke's SASS count of K1's step loop (the backward branch
+    around the first SHFL.UP) and of its column block (the forward branch
+    around the cells' VIADDMNMX.RELU), on a dump of that shape."""
+    import chip_smoke
+
+    got = chip_smoke.sass_loop("scan_colmax_kernelILi2E", _SASS)
+    assert got["loop"] == 9 and got["loop_integer"] == 3
+    assert (got["block"], got["cells"], got["integer"], got["moves"],
+            got["cell_ops"]) == (4, 2, 3, 1, 4)
+    assert got["opcodes"] == {"VIADDMNMX.RELU": 2, "PRMT": 1,
+                              "IMAD.MOV.U32": 1}
