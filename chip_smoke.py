@@ -28,11 +28,14 @@ Phases, each printing one line with its seconds:
      uniform forward specs on K3 and reverse specs on window_general,
      one row past it both on window_general32), K6
      window_keys on every width class (two 64-column windows per row
-     included) and on the same specs, K5 scan_codes_colmax (the
-     per-segment shape in both alphabets, a packed batch, impure codes
-     with a U query, a GA-rich row past 251, a NEAT1-length query) and
-     the engine's per-segment call on the card against the same call on
-     a CPU engine;
+     included) and on the same specs, K5 scan_codes_colmax on its
+     library's launch plan and at the plan's edges (one strip, strips =
+     warps, strips > warps through the scratch row, one warp over several
+     strips) with codes >= 8 in the rows, in both alphabets (the
+     per-segment shape, a short query, a packed batch, impure codes with a
+     U query, a GA-rich row past 251, a NEAT1-length query) and the
+     engine's per-segment call on the card against the same call on a CPU
+     engine;
   4. e2e     — in this process, every output file and stdout (except
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
@@ -59,7 +62,12 @@ Phases, each printing one line with its seconds:
      and the dispatch's rlen histogram; on K4's dispatch
      K4's int32 kernel, each width class's time, bound and swept cells,
      the histograms of the sweep spans and of the offset mismatches
-     within pairs), each kernel's bound: the larger of
+     within pairs; K5 at the per-segment shape in both alphabets on its
+     plan and on the candidate plans, the cycles of its step against its
+     rows a lane, at the packed-batch shape and on the per-segment rows
+     at NEAT1 length, with each launched instantiation's step-loop SASS,
+     registers and resident warps an SM),
+     each kernel's bound: the larger of
      the least integer operations its cells need (ops_per_cell) over the
      card's int32 rate (SMs x 64 lanes x the max SM clock) and its bytes
      over 3.35 TB/s, and every kernel's ptxas registers;
@@ -158,7 +166,9 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
     """SASS counts of a scan kernel's step loop, from the first kernel whose
     mangled name contains `kernel`, in `text` or else `cuobjdump -sass` of
     the built library (build/kernels/libfasim_cuda.so).  The step loop is
-    the innermost loop (a backward BRA) around the kernel's first SHFL.UP;
+    the innermost loop (a predicated backward BRA: not one of the
+    unconditional jumps back from the out-of-line divergence paths) around
+    the kernel's first SHFL.UP;
     in it, the column block is what a lane runs for a column in range: the
     instructions between the innermost forward BRA around every
     VIADDMNMX.RELU of the loop (one a cell) and its target.  Returns the
@@ -189,10 +199,12 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
             target = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)",
                                found.group(2))
             ins.append((int(found.group(1), 16), op,
-                        int(target.group(1), 16) if target else None))
-    shfl = next(a for a, op, _ in ins if op == "SHFL.UP")
-    _, lo, hi = min((a - t, t, a) for a, _, t in ins
-                    if t is not None and t <= shfl < a)
+                        int(target.group(1), 16) if target else None,
+                        words[0].startswith("@")))
+    shfl = next(a for a, op, _, _ in ins if op == "SHFL.UP")
+    _, lo, hi = min((a - t, t, a) for a, _, t, pred in ins
+                    if pred and t is not None and t <= shfl < a)
+    ins = [(a, op, t) for a, op, t, _ in ins]
     loop = [(a, op, t) for a, op, t in ins if lo <= a <= hi]
     relu = [a for a, op, _ in loop if op == "VIADDMNMX.RELU"]
     _, b_lo, b_hi = min((t - a, a, t) for a, _, t in loop
@@ -349,7 +361,8 @@ class Smoke:
         require(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         mhz = float(clk.stdout.strip().splitlines()[0])
-        self.int32_ops = sms * INT32_LANES * mhz * 1e6
+        self.sm_hz = mhz * 1e6
+        self.int32_ops = sms * INT32_LANES * self.sm_hz
         print(f"int32 rate: {sms} SMs x {INT32_LANES} lanes x {mhz:.0f} MHz "
               f"(max SM clock) = {self.int32_ops:.4g} ops/s; memory "
               f"{MEM_BPS:.4g} B/s")
@@ -782,51 +795,82 @@ class Smoke:
         return out
 
     def k5_case(self, name: str, rna, rows, n_pad: int,
-                alphabets=("ssw", "thresh"), shape=None):
-        """K5 kernel vs plain on the same device inputs, per alphabet;
-        returns the last alphabet's kernel output."""
+                alphabets=("ssw", "thresh"), shape=None, plans=(None,),
+                high: float = 0.0):
+        """K5 kernel vs plain on the same device inputs, per alphabet and
+        per launch plan (rows a lane, warps; None: the library's plan),
+        with a share `high` of the codes replaced by codes >= 8; returns
+        the last kernel output."""
         torch = self.torch
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
         from fasim_tpu_torch.kernels.scan_codes import (
-            scan_codes_colmax, scan_codes_colmax_ref)
+            kernel_plan, scan_codes_colmax, scan_codes_colmax_ref)
 
         eng = TorchScanEngine(rna, device=self.dev)
         got = None
         for which in alphabets:
             codes = self.k5_codes(which, rows, n_pad)
+            hit = self.rng.random(codes.shape) < high
+            codes[hit] = self.rng.integers(8, 256, int(hit.sum()))
             if shape is not None:
                 codes = codes.reshape(shape)
             codes_d = torch.from_numpy(codes).to(self.dev)
-            args = (codes_d, eng._dev[f"qprops_{which}"], eng.m16, which)
-            got = scan_codes_colmax(*args)
-            self.compare("scan_codes_colmax", got, scan_codes_colmax_ref(
-                *args), f"{name}/{which}")
+            args = (codes_d, eng._dev[f"qprops_{which}"])
+            want = scan_codes_colmax_ref(*args, eng.m16, which)
+            for plan in plans:
+                got = scan_codes_colmax(*args, eng._dev[f"ctab_{which}"],
+                                        eng.m16, which, plan=plan)
+                self.compare("scan_codes_colmax", got, want,
+                             f"{name}/{which} plan {plan or 'library'}")
+        own = kernel_plan(codes.size // n_pad, eng.m16)
         print(f"  K5 {name}: {tuple(codes.shape)} m={len(rna)} "
-              f"{'+'.join(alphabets)} max={int(got.max())} equal")
+              f"{'+'.join(alphabets)}, plans (rows a lane, warps) "
+              + ", ".join(f"{p}" if p else f"{own} (library)"
+                          for p in plans)
+              + f"{f', {high:.0%} codes >= 8' if high else ''}: "
+              f"max={int(got.max())} equal")
         return got
 
     def k5_checks(self) -> None:
+        """K5 at the launch plan's edges: one strip (a short query), strips
+        = warps, strips > warps (the wrap through the scratch row), one
+        warp over several strips (a packed batch's plan), on the
+        per-segment shape, a packed batch, ragged impure rows with a U
+        query, GA rows past 251 and a NEAT1-length query."""
         np = self.np
         T = 48
         rna = self.dna(MEG3_M)
         self.k5_rna = rna
         self.k5_seg = [self.dna(5000) for _ in range(T)]
-        self.k5_case("per-segment shape", rna, self.k5_seg, 5000)
+        # m16 = 1,584: 4 strips of 13 rows a lane, 7 of 8, 13 of 4
+        self.k5_case("per-segment shape", rna, self.k5_seg, 5000,
+                     plans=(None, (13, 4), (13, 2), (8, 4), (13, 1),
+                            (4, 13)), high=0.02)
+        # m16 = 240: one strip of 8 rows a lane (the library's plan), or
+        # of 8 with a warp idle, or 4 strips of 2 on 4 warps
+        self.k5_case("short query", self.dna(230),
+                     [self.dna(int(n)) for n in
+                      self.rng.integers(600, 1001, T)], 1000,
+                     plans=(None, (8, 2), (2, 4)), high=0.02)
         packed = [self.dna(5120) for _ in range(64 * T)]
         self.k5_case("packed batch", rna, packed, 5120, ("ssw",),
-                     shape=(64, T, 5120))
+                     shape=(64, T, 5120), high=0.01)
         rna_u = rna.copy()
         rna_u[self.rng.integers(0, len(rna_u), 20)] = ord("U")
         impure = [self.dna(int(n), b"ACGTNUacgt")
                   for n in self.rng.integers(1200, 1801, T)]
-        self.k5_case("impure + U query, ragged", rna_u, impure, 1800)
+        self.k5_case("impure + U query, ragged", rna_u, impure, 1800,
+                     plans=(None, (7, 8)), high=0.02)
         ga = np.frombuffer(b"GA" * (MEG3_M // 2), np.uint8).copy()
         sat = [np.concatenate([self.dna(300), ga[:600], self.dna(400)])
                for _ in range(8)]
         got = self.k5_case("GA-rich past 251", ga, sat, 1300)
         require(int(got.max()) > 255, "K5 GA rows did not pass 255")
+        # m16 = 22,768: 45 strips of 16 rows a lane, on 16 warps (three
+        # rounds through the scratch row) and on 7
         self.k5_case("NEAT1-length query", self.dna(NEAT1_M),
-                     [self.dna(900) for _ in range(T)], 900)
+                     [self.dna(900) for _ in range(T)], 900,
+                     plans=(None, (16, 7)), high=0.02)
         self.k5_engine_call()
 
     def k5_engine_call(self) -> None:
@@ -1327,13 +1371,22 @@ class Smoke:
               + f"; cells swept {swept_all} against the bound's {cells} "
               f"({swept_all / cells:.3f}x)")
 
+    # K5's candidate plans (rows a lane, warps) at the per-segment shape
+    # (m16 = 1,584: each with a warp a strip, then 4 strips on 2 warps and
+    # on 1) and at NEAT1 length (m16 = 22,768)
+    K5_PLANS = ((4, 13), (5, 10), (6, 9), (7, 8), (8, 7), (10, 5), (13, 4),
+                (13, 2), (13, 1))
+    K5_PLANS_NEAT1 = ((16, 16), (16, 8), (8, 16))
+
     def k5_times(self) -> None:
         """K5 at the per-segment shape (both alphabets; the ssw pass is the
-        reported one) and at the packed-batch shape."""
+        reported one) on the library's plan and on the candidate plans,
+        its step loop's SASS, registers and resident warps; at the
+        packed-batch shape; on the per-segment rows at NEAT1 length."""
         torch = self.torch
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
         from fasim_tpu_torch.kernels.scan_codes import (
-            scan_codes_colmax, scan_codes_colmax_ref)
+            kernel_plan, scan_codes_colmax, scan_codes_colmax_ref)
 
         rna = self.k5_rna
         eng = TorchScanEngine(rna, device=self.dev)
@@ -1341,32 +1394,122 @@ class Smoke:
         for which in ("thresh", "ssw"):
             codes = torch.from_numpy(self.k5_codes(which, self.k5_seg,
                                                    5000)).to(self.dev)
-            args = (codes, eng._dev[f"qprops_{which}"], eng.m16, which)
+            args = (codes, eng._dev[f"qprops_{which}"],
+                    eng._dev[f"ctab_{which}"], eng.m16, which)
             shapes[which] = self.cuda_ms(lambda: scan_codes_colmax(*args), 5)
-        plain = self.cuda_ms(lambda: scan_codes_colmax_ref(*args), 1,
-                             warm=False)
+        plain = self.cuda_ms(lambda: scan_codes_colmax_ref(
+            *args[:2], eng.m16, "ssw"), 1, warm=False)
         rows, N = codes.shape[1], codes.shape[2]
+        plan = kernel_plan(rows, eng.m16)
         self.ms["scan_codes_colmax"] = shapes["ssw"]
         self.plain_ms["scan_codes_colmax"] = plain
+        cells = rows * N * eng.m16
         self.work["scan_codes_colmax"] = (
-            ops_per_cell("scan_codes_colmax", eng.m16) * rows * N * eng.m16,
+            ops_per_cell("scan_codes_colmax", eng.m16) * cells,
             rows * N + 4 * rows * N + 16 * eng.m16)
+        bound_ms = self.bound(*self.work["scan_codes_colmax"])[0]
         print(f"  K5 scan_codes_colmax, per-segment shape S=1 T={rows} "
-              f"N={N} m={len(rna)}: kernel ssw {shapes['ssw']:.3f} ms, "
-              f"thresh {shapes['thresh']:.3f} ms, plain (ssw) "
-              f"{plain:.3f} ms")
+              f"N={N} m={len(rna)}, plan {plan} (rows a lane, warps): "
+              f"kernel ssw {shapes['ssw']:.3f} ms, thresh "
+              f"{shapes['thresh']:.3f} ms, plain (ssw) {plain:.3f} ms; "
+              f"bound {bound_ms:.4f} ms, {bound_ms / shapes['ssw']:.2%} of "
+              f"it; int32-form floor (7 a cell) "
+              f"{self.bound(7 * cells, 0)[0]:.4f} ms")
+        self.k5_rates(plan, N, rows, shapes["ssw"])
+        times = {p: self.cuda_ms(lambda p=p: scan_codes_colmax(
+            *args, plan=p), 5) for p in self.K5_PLANS}
+        print("  K5 per-segment ssw pass by plan (rows a lane, warps): "
+              + ", ".join(f"{p} {ms:.3f} ms" for p, ms in times.items()))
+        self.k5_step_probe(codes)
         packed = torch.from_numpy(self.k5_codes(
             "ssw", [self.dna(5120) for _ in range(64 * rows)], 5120).reshape(
                 64, rows, 5120)).to(self.dev)
-        args = (packed, eng._dev["qprops_ssw"], eng.m16, "ssw")
-        ms = self.cuda_ms(lambda: scan_codes_colmax(*args), 3)
+        pargs = (packed, eng._dev["qprops_ssw"], eng._dev["ctab_ssw"],
+                 eng.m16, "ssw")
+        ms = self.cuda_ms(lambda: scan_codes_colmax(*pargs), 3)
+        pplan = kernel_plan(64 * rows, eng.m16)
         cells = packed.numel() * eng.m16
         bound_ms = self.bound(
             ops_per_cell("scan_codes_colmax", eng.m16) * cells, 0)[0]
         print(f"  K5 scan_codes_colmax, packed batch S=64 T={rows} N=5120 "
-              f"m={len(rna)}, ssw: kernel {ms:.3f} ms "
+              f"m={len(rna)}, ssw, plan {pplan}: kernel {ms:.3f} ms "
               f"({cells / ms / 1e6:.1f} G cell-updates/s; bound "
-              f"{bound_ms:.3f} ms)")
+              f"{bound_ms:.3f} ms; int32-form floor "
+              f"{self.bound(7 * cells, 0)[0]:.3f} ms)")
+        self.k5_rates(pplan, 5120, 64 * rows, ms)
+        self.k5_neat1(codes)
+
+    def k5_step_probe(self, codes) -> None:
+        """The time of one step of K5's pipelined sweep against its rows a
+        lane R: the per-segment rows (48 x N) at m16 = 64 R, two strips on
+        two warps (one a scheduler), so N + 94 steps; and the least-squares
+        line through the cycles a step at the max SM clock."""
+        np = self.np
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.kernels.scan_codes import scan_codes_colmax
+
+        N = codes.shape[-1]
+        rows, cycles = (2, 4, 8, 13, 16), []
+        for per_lane in rows:
+            eng = TorchScanEngine(self.dna(64 * per_lane), device=self.dev)
+            args = (codes, eng._dev["qprops_ssw"], eng._dev["ctab_ssw"],
+                    eng.m16, "ssw")
+            ms = self.cuda_ms(lambda: scan_codes_colmax(
+                *args, plan=(per_lane, 2)), 5)
+            cycles.append(ms * 1e-3 * self.sm_hz / (N + 94))
+        slope, icept = np.polyfit(rows, cycles, 1)
+        print("  K5 step probe (2 strips on 2 warps, cycles a step at "
+              f"{self.sm_hz / 1e6:.0f} MHz): " + ", ".join(
+                  f"{r} rows {c:.0f}" for r, c in zip(rows, cycles))
+              + f"; fit {icept:.0f} + {slope:.1f} a row a lane")
+
+    def k5_rates(self, plan, N: int, rows: int, ms: float) -> None:
+        """The SASS count of the step loop of the K5 instantiation a plan
+        launches (sass_loop), its ptxas registers, its resident warps an SM
+        (the occupancy calculator) and the waves of its `rows` blocks."""
+        from fasim_tpu_torch.kernels.scan_codes import blocks_per_sm
+
+        per_lane, warps = plan
+        name = f"scan_codes_kernelILi{per_lane}ELb{int(warps > 1)}E"
+        sass = sass_loop(name)
+        regs = [r for e, r in ptxas_registers().items() if name in e]
+        sms = self.torch.cuda.get_device_properties(0).multi_processor_count
+        blocks = blocks_per_sm(plan, N)
+        print(f"  K5 {name}: step loop {sass['loop']} instructions, "
+              f"{sass['loop'] / per_lane:.2f} a cell, "
+              f"{sass['loop_integer']} integer; column block "
+              f"{sass['block']} ({sass['cell_ops'] / per_lane:.2f} a cell "
+              f"the cells' own); {regs[0] if regs else '?'} registers; "
+              f"{blocks} blocks of {warps} warps = {blocks * warps} resident "
+              f"warps an SM; {rows} blocks = {rows / (blocks * sms):.3f} "
+              f"waves on {sms} SMs; {ms:.3f} ms")
+
+    def k5_neat1(self, codes) -> None:
+        """K5 on the per-segment rows (48 x 5,000) at NEAT1 length (m =
+        22,767), ssw pass, kernel only, on the library's plan and the
+        candidates."""
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.kernels.scan_codes import (kernel_plan,
+                                                        scan_codes_colmax)
+
+        eng = TorchScanEngine(self.dna(NEAT1_M), device=self.dev)
+        args = (codes, eng._dev["qprops_ssw"], eng._dev["ctab_ssw"],
+                eng.m16, "ssw")
+        rows, N = codes.shape[1], codes.shape[2]
+        plan = kernel_plan(rows, eng.m16)
+        ms = self.cuda_ms(lambda: scan_codes_colmax(*args), 2)
+        cells = rows * N * eng.m16
+        bound_ms = self.bound(
+            ops_per_cell("scan_codes_colmax", eng.m16) * cells, 0)[0]
+        print(f"  K5 scan_codes_colmax at NEAT1 length, per-segment rows "
+              f"S=1 T={rows} N={N} m={NEAT1_M} (m16 {eng.m16}), ssw, plan "
+              f"{plan}: kernel {ms:.3f} ms, bound {bound_ms:.3f} ms (int32 "
+              "forms)")
+        self.k5_rates(plan, N, rows, ms)
+        times = {p: self.cuda_ms(lambda p=p: scan_codes_colmax(
+            *args, plan=p), 2) for p in self.K5_PLANS_NEAT1}
+        print("  K5 at NEAT1 length by plan: " + ", ".join(
+            f"{p} {t:.3f} ms" for p, t in times.items()))
 
     # -- phase 6 ---------------------------------------------------------
 

@@ -1,7 +1,7 @@
 // The DP core shared by K1 (scan.cu), K5 (scan_codes.cu) and K7
-// (scan16.cu): one warp sweeps one code row (or, in K7, two code rows
-// packed into the halves of each register) against the query and hands
-// every column's exact maximum to the caller.
+// (scan16.cu): warps sweep one code row (or, in K7, two code rows packed
+// into the halves of each register) against the query and hand every
+// column's exact maximum to the caller.
 //
 // Exact affine-gap Smith-Waterman, gap open 16 / extend 4.  Query row r
 // scores s = code == q ? hi : lo, and in the threshold alphabet s = nv
@@ -12,21 +12,22 @@
 // the warp sweeps the columns as a diagonal wavefront (lane k works on
 // column step - k).  The H and F of the row above a band and the running
 // column max pass down the warp by shuffles, so the vertical gap is exact
-// at any length.  Queries taller than one strip of 32 * kMaxRows rows run
-// strip after strip; a strip's bottom row (H, F, column max) goes through
-// a global scratch row read back by the next strip.  The bottom lane of
-// the last strip owns the finished column max.
+// at any length.  Queries taller than one strip of 32 bands run strip
+// after strip; a strip's bottom row (H, F, column max) goes to the next
+// strip, through a global scratch row or, in a pipelined block, through
+// shared memory to the next warp.  The bottom lane of the last strip owns
+// the finished column max.
 //
 // The cell arithmetic is a policy:
-//   * CellI32Dpx (K1): one int32 cell per register on Hopper's DPX forms,
-//     7 operations a cell in either alphabet.  A row is one of at most 8
-//     score classes; the column's code picks an 8-byte table of the classes'
-//     scores + 16 from shared memory once per column, and each row's prmt
-//     selector picks its class's byte.  The cell keeps G = H - 16, also in
-//     the hand-offs and the scratch row.  K1 fixes the rows per lane at
-//     compile time (sweep_columns_fixed), with zero-score rows above row 0.
-//   * CellI32 (K5): one int32 cell per register, the score by compare and
-//     select from the row's (q, hi, lo, nv), 13 or 14 integer operations.
+//   * CellI32Dpx (K1, K5): one int32 cell per register on Hopper's DPX
+//     forms, 7 operations a cell in either alphabet.  A row is one of at
+//     most 8 score classes; the column's code picks an 8-byte table of the
+//     classes' scores + 16 from shared memory once per column, and each
+//     row's prmt selector picks its class's byte.  The cell keeps G = H -
+//     16, also in the hand-offs and the scratch row.  Both fix the rows per
+//     lane at compile time (sweep_columns_fixed), with zero-score rows
+//     above row 0; K5 also runs a code row's strips at once, one warp each
+//     (a pipelined block).
 //   * CellS16x2 (K7): two int16 cells per register, s16x2 DPX forms.
 #pragma once
 
@@ -40,6 +41,8 @@ constexpr int kGapOpen = 16;
 constexpr int kGapExtend = 4;
 constexpr int kWarp = 32;
 constexpr int kMaxRows = 16;  // query rows per lane in one strip
+// warps of a pipelined block: its rings meet on named barriers 1..15
+constexpr int kMaxWarps = 16;
 constexpr int kNeg = -(1 << 30);
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -47,41 +50,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // alphabet's score of a reference N).
 struct QueryRow {
   int q, hi, lo, nv;
-};
-
-// int32 cells: codes are uint8 engine codes.
-template <bool kThresh>
-struct CellI32 {
-  using Word = int;
-  using Code = uint8_t;
-  struct Row {
-    int h, e, q, hi, lo, nv;
-  };
-  static constexpr int kTop = kNeg;  // F above query row 0
-
-  __device__ __forceinline__ static Row row(QueryRow qr) {
-    return Row{0, 0, qr.q, qr.hi, qr.lo, kThresh ? qr.nv : 0};
-  }
-  // the H handed down the warp, in the form step() reads as `hu`
-  __device__ __forceinline__ static int carry_in(int h) { return h; }
-  __device__ __forceinline__ static int carry_out(int hu) { return hu; }
-
-  // One cell: diag is H(r-1, j-1) on entry and H(r, j-1) on exit; hu is
-  // H(r-1, j) on entry and H(r, j) on exit; f is F(r-1, j) -> F(r, j).
-  __device__ __forceinline__ static void step(Row& w, int c, int& diag,
-                                              int& hu, int& f, int& cm) {
-    int sc = c == w.q ? w.hi : w.lo;
-    if (kThresh && c == 5) sc = w.nv;
-    const int ev = max(w.e - kGapExtend, w.h - kGapOpen);
-    const int tmp = max(max(diag + sc, ev), 0);
-    f = max(hu - kGapOpen, f - kGapExtend);
-    const int hv = max(tmp, f);
-    diag = w.h;
-    w.h = hv;
-    w.e = ev;
-    hu = hv;
-    cm = max(cm, hv);
-  }
 };
 
 // int32 cells on Hopper's DPX forms.  A query row is one of at most 8 score
@@ -94,7 +62,20 @@ struct CellI32 {
 // and F (one __viaddmax each), H (__viaddmax_relu of the diagonal and E,
 // then a max with F), G and the column max.  No overflow: G >= -16, a table
 // byte <= 21, and E, F >= -20 after the first row and column.
-struct CellI32Dpx {
+//
+// kShort (K5) shortens the chain of dependent operations down a lane's rows
+// from three a row (F, H, G) to one, at the same 7 operations a cell.  As
+// F(r) = max(F(r-1) - 4, H(r-1) - 16) and H(r-1) = max(tmp(r-1), F(r-1)),
+// where tmp is H before the vertical gap, F(r) = max(F(r-1) - 4, tmp(r-1) -
+// 16): the F - 16 term never wins.  So the cell keeps F + 16 (also in the
+// hand-offs) and takes row r's F from F(r-1) and tmp(r-1) alone, one
+// __viaddmax, and H = max(tmp, F) is one __viaddmax of F + 16 off the chain.
+// Row 0 of a band takes the H of the row above, G + 16 (carry_in), and the
+// band hands down its bottom row's G (carry_out).  K1, whose warps fill the
+// card (its time is instruction throughput, not latency), keeps the
+// three-step form.
+template <bool kShort = false>
+struct CellI32DpxT {
   using Word = int;
   struct Row {
     int g, e;
@@ -112,11 +93,17 @@ struct CellI32Dpx {
     return Row{kH0, 0, selector(k)};
   }
   __device__ __forceinline__ static int zero_query() { return 0; }
-  __device__ __forceinline__ static int carry_in(int g) { return g; }
-  __device__ __forceinline__ static int carry_out(int gu) { return gu; }
+  __device__ __forceinline__ static int carry_in(int g) {
+    return kShort ? g + kGapOpen : g;
+  }
+  __device__ __forceinline__ static int carry_out(int gu, const Row& last) {
+    return kShort ? last.g : gu;
+  }
 
-  // As CellI32::step with every H word in G form: diag is G(r-1, j-1) on
-  // entry and G(r, j-1) on exit, gu G(r-1, j) -> G(r, j); cm takes H.
+  // One cell, every H word in G form: diag is G(r-1, j-1) on entry and
+  // G(r, j-1) on exit, gu G(r-1, j) -> G(r, j), f F(r-1, j) -> F(r, j);
+  // E(r, j) = max(E(r, j-1) - 4, H(r, j-1) - 16); cm takes H.  kShort: f
+  // holds F + 16, and gu H(r-1, j) (row 0) or tmp(r-1, j) -> tmp(r, j).
   __device__ __forceinline__ static void step(Row& w, uint2 t, int& diag,
                                               int& gu, int& f, int& cm) {
     int s;
@@ -124,15 +111,26 @@ struct CellI32Dpx {
         "r"(w.sel));
     const int ev = __viaddmax_s32(w.e, -kGapExtend, w.g);
     const int tmp = __viaddmax_s32_relu(diag, s, ev);
-    f = __viaddmax_s32(f, -kGapExtend, gu);
-    const int hv = max(tmp, f);
-    diag = w.g;
-    w.g = hv - kGapOpen;
-    w.e = ev;
-    gu = w.g;
-    cm = max(cm, hv);
+    if constexpr (kShort) {
+      f = __viaddmax_s32(f, -kGapExtend, gu);
+      const int hv = __viaddmax_s32(f, -kGapOpen, tmp);
+      diag = w.g;
+      w.g = hv - kGapOpen;
+      w.e = ev;
+      gu = tmp;
+      cm = max(cm, hv);
+    } else {
+      f = __viaddmax_s32(f, -kGapExtend, gu);
+      const int hv = max(tmp, f);
+      diag = w.g;
+      w.g = hv - kGapOpen;
+      w.e = ev;
+      gu = w.g;
+      cm = max(cm, hv);
+    }
   }
 };
+using CellI32Dpx = CellI32DpxT<false>;
 
 // Two int16 cells per 32-bit register, row A in the low half and row B in
 // the high half, with Hopper's s16x2 DPX forms.  Exact while every H fits
@@ -178,7 +176,7 @@ struct CellS16x2 {
     return __viaddmax_s16x2(hu, kP16, kMin);
   }
 
-  // As CellI32::step, with hu holding H(., j) - 16.
+  // The cell of CellI32Dpx::step for two rows, with hu holding H(., j) - 16.
   __device__ __forceinline__ static void step(Row& w, unsigned sel,
                                               unsigned& diag, unsigned& hu,
                                               unsigned& f, unsigned& cm) {
@@ -198,13 +196,15 @@ struct CellS16x2 {
   }
 };
 
-// Strips and rows per lane of a query of m16 rows: the rows spread evenly
-// over the strips, so that the last one is not mostly idle.
-__host__ __device__ inline int sweep_strips(int m16) {
-  return (m16 + kWarp * kMaxRows - 1) / (kWarp * kMaxRows);
+// Strips and rows per lane of a query of m16 rows at most max_rows rows a
+// lane: the rows spread evenly over the strips, so that the last one is
+// not mostly idle.  A sweep of kRows rows a lane runs sweep_strips(m16,
+// kRows) strips (for kRows = sweep_rows(m16, r) as many as for r).
+__host__ __device__ inline int sweep_strips(int m16, int max_rows = kMaxRows) {
+  return (m16 + kWarp * max_rows - 1) / (kWarp * max_rows);
 }
-__host__ __device__ inline int sweep_rows(int m16) {
-  const int nstrips = sweep_strips(m16);
+__host__ __device__ inline int sweep_rows(int m16, int max_rows = kMaxRows) {
+  const int nstrips = sweep_strips(m16, max_rows);
   return (m16 + kWarp * nstrips - 1) / (kWarp * nstrips);
 }
 
@@ -280,38 +280,88 @@ __device__ __forceinline__ void sweep_columns(const typename Cell::Code* codes,
   }
 }
 
-// K1's sweep: sweep_columns' wavefront with every lane stepping exactly
-// kRows == sweep_rows(m16) rows (the caller dispatches on it), so the row
-// loop is straight code.  The rows the strips hold beyond m16 go above row
-// 0 as rows of Cell::zero_query(), which score 0: such a row keeps H = 0
-// under a top boundary of H = 0 (diag + 0, E and F <= 0) and hands row 0
-// F = -16, which it gets from H(-1, j) = 0 anyway, so the DP and every
-// column max are unchanged.  The strip hand-off goes through the global
-// scratch row in blocks of 32 columns, one column a lane, staged in
-// shared memory: lane 0 reads the row above the strip from the staging
-// block (the next block is fetched 32 steps ahead), lane 31 writes its
-// outputs into the other staging block, and every 32 columns the warp
-// stores that block, so no step branches on the lane.
+// Warps w - 1 and w of a pipelined block meet on named barrier w (64
+// threads; it also orders their shared-memory accesses).
+__device__ __forceinline__ void ring_sync(int id) {
+  asm volatile("barrier.sync %0, 64;" ::"r"(id) : "memory");
+}
+
+// Wait until another warp of the block has published `target` (a count in
+// shared memory, raised after the stores it covers).
+__device__ __forceinline__ void wait_count(const int* count, int target) {
+  while (*static_cast<const volatile int*>(count) < target) {
+  }
+  __threadfence_block();
+}
+
+// The sweep of K1 and K5: sweep_columns' wavefront with every lane stepping
+// exactly kRows rows (the caller dispatches on it), so the row loop is
+// straight code.  The strips hold sweep_strips(m16, kRows) * 32 * kRows
+// rows; those beyond m16 go above row 0 as rows of Cell::zero_query(), which
+// score 0: such a row keeps H = 0 under a top boundary of H = 0 (diag + 0,
+// E and F <= 0) and hands row 0 F = -16, which it gets from H(-1, j) = 0
+// anyway, so the DP and every column max are unchanged.
+//
+// A strip's bottom row goes to the next strip in blocks of 32 columns, one
+// column a lane, so no step branches on the lane: lane 31 writes its H, F
+// and column max into a staging block in shared memory and lane 0 of the
+// next strip reads them from one.
+//   * One warp (kPipe false; K1, and K5 with many code rows) runs the
+//     strips one after another.  Every 32 columns the warp stores its
+//     outputs' block to the global scratch row; lane 0 reads the row above
+//     the strip from a staging block that the warp fills from the scratch
+//     row, which it fetches a block ahead.
+//   * A pipelined block (kPipe, K5 with few code rows) runs a code row's
+//     strips at once: warp w of W takes strips w, w + W, w + 2W, ...  Warp
+//     w hands its strips' bottom rows to warp w + 1 through a ring of two
+//     32-column blocks in shared memory.  The two warps meet on named
+//     barrier w + 1 once a block: warp w when it has written the block,
+//     warp w + 1 before it reads it, so warp w + 1 runs two blocks (63
+//     steps) behind and neither overwrites a block the other still reads.
+//     A block's ring slot alternates, counted over every block the pair
+//     has moved (so a strip of an odd number of blocks does not restart
+//     the slot the other warp still reads).  With more strips than warps,
+//     warp W - 1 hands its strips to warp 0 through the global scratch row
+//     (the wrap), a block at a time: it publishes the blocks it has stored
+//     in a shared count, which warp 0 waits for (a block ahead, for its
+//     fetch).  The wrap does not block warp W - 1, so no cycle of waits
+//     closes.  The next strip of warp W - 1 trails the strip of warp 0
+//     that read the scratch row by the W - 1 ring hand-offs between them,
+//     two blocks each, so warp 0 has read a block before it is written
+//     again.  A pipelined block's warps also fetch each column's word a
+//     step ahead, off the step's chain of dependent operations.
 //
 // col(j): column j's word for Cell::step (a call after the caller's codes
-// are written and a __syncwarp); load(row) -> the argument of Cell::row
-// for rows < m16;
-// bnd: Word[3, N] scratch (read only with more than one strip); emit(j,
-// cm) runs on lane j % 32 for every column j, 32 columns at a time.
-template <class Cell, int kRows, class Col, class Load, class Emit>
+// are written and a __syncwarp, or a __syncthreads when pipelined);
+// load(row) -> the argument of Cell::row for rows < m16; bnd: Word[3, N]
+// scratch (read only with more strips than warps); emit(j, cm) runs on
+// lane j % 32 of the warp of the last strip for every column j, 32 columns
+// at a time.  A pipelined block has blockDim.x / 32 <= kMaxWarps warps.
+template <class Cell, int kRows, bool kPipe = false, class Col, class Load,
+          class Emit>
 __device__ __forceinline__ void sweep_columns_fixed(
     Col col, int N, int m16, typename Cell::Word* bnd, Load load,
     Emit emit) {
   using Word = typename Cell::Word;
-  __shared__ Word stage_in[3][kWarp];   // H, F, column max above the strip
-  __shared__ Word stage_out[3][kWarp];  // lane 31's H, F, column max
+  __shared__ Word stage_in[3][kWarp];  // H, F, column max above the strip
+  // each warp's lane 31's H, F, column max (stored to bnd or emitted)
+  __shared__ Word stage_out[kPipe ? kMaxWarps : 1][3][kWarp];
+  __shared__ Word ring[kPipe ? kMaxWarps - 1 : 1][2][3][kWarp];  // w -> w+1
+  __shared__ int wrap_done;  // blocks of bnd published by warp W - 1
   const int lane = threadIdx.x % kWarp;
-  const int nstrips = sweep_strips(m16);
+  const int warp = kPipe ? static_cast<int>(threadIdx.x) / kWarp : 0;
+  const int warps = kPipe ? static_cast<int>(blockDim.x) / kWarp : 1;
+  const int nstrips = sweep_strips(m16, kRows);
+  const int nblocks = (N + kWarp - 1) / kWarp;
   const int pad = nstrips * kWarp * kRows - m16;  // zero rows above row 0
-  Word* bh = bnd;  // used only with >1 strip
+  Word* bh = bnd;  // used only with more strips than warps
   Word* bf = bh + N;
   Word* bc = bf + N;
-  for (int strip = 0; strip < nstrips; ++strip) {
+  if (kPipe) {
+    if (threadIdx.x == 0) wrap_done = 0;
+    __syncthreads();
+  }
+  for (int strip = warp; strip < nstrips; strip += warps) {
     const int row0 = (strip * kWarp + lane) * kRows - pad;
     typename Cell::Row w[kRows];
 #pragma unroll
@@ -319,67 +369,111 @@ __device__ __forceinline__ void sweep_columns_fixed(
       w[r] = Cell::row(row0 + r >= 0 ? load(row0 + r) : Cell::zero_query());
     const bool first = strip == 0;
     const bool last = strip == nstrips - 1;
+    // pipelined: the strip above comes through the ring of the warp above
+    // (warp 0: through bnd), this one goes through this warp's ring (warp W
+    // - 1: through bnd)
+    const bool ring_in = kPipe && !first && warp > 0;
+    const bool ring_out = kPipe && !last && warp < warps - 1;
+    // the blocks this warp's earlier strips moved through its rings
+    const int moved = kPipe ? (strip - warp) / warps * nblocks : 0;
+    // the wrap's count before the strip that feeds this one (warp 0) and
+    // before this one (warp W - 1)
+    const int wrap_in = kPipe ? (strip / warps - 1) * nblocks : 0;
+    const int wrap_out = kPipe ? ((strip + 1) / warps - 1) * nblocks : 0;
     Word up_prev = Cell::kH0;  // H of the row above the band, last column
     Word out_h = Cell::kH0, out_f = Cell::kTop, out_c = 0;
     // the scratch row's next block, column 32 * block + lane
     Word next_h = Cell::kH0, next_f = Cell::kTop, next_c = 0;
-    if (!first && lane < N) {
-      next_h = bh[lane];
-      next_f = bf[lane];
-      next_c = bc[lane];
+    Word(*in)[kWarp] = stage_in;  // the block above the strip
+    // lane 31's block of outputs: this warp's ring slot or staging block
+    Word(*out)[kWarp] = ring_out ? ring[warp][moved % 2] : stage_out[warp];
+    // pipelined: the column word of the next step, fetched a step ahead
+    decltype(col(0)) col_next{};
+    if (kPipe) col_next = col(0);
+    if (!first && !ring_in) {
+      if (kPipe) wait_count(&wrap_done, wrap_in + 1);
+      if (lane < N) {
+        next_h = bh[lane];
+        next_f = bf[lane];
+        next_c = bc[lane];
+      }
     }
     for (int step = 0; step < N + kWarp - 1; ++step) {
       const int k = step % kWarp;
       if (!first && k == 0) {
-        __syncwarp();
-        stage_in[0][lane] = next_h;
-        stage_in[1][lane] = next_f;
-        stage_in[2][lane] = next_c;
-        const int jn = step + kWarp + lane;
-        if (jn < N) {
-          next_h = bh[jn];
-          next_f = bf[jn];
-          next_c = bc[jn];
+        if (ring_in) {
+          if (step < N) {  // the warp above has written block step / 32
+            ring_sync(warp);
+            in = ring[warp - 1][(moved + step / kWarp) % 2];
+          }
+        } else {
+          __syncwarp();
+          stage_in[0][lane] = next_h;
+          stage_in[1][lane] = next_f;
+          stage_in[2][lane] = next_c;
+          if (kPipe)
+            wait_count(&wrap_done, wrap_in + min(step / kWarp + 2, nblocks));
+          const int jn = step + kWarp + lane;
+          if (jn < N) {
+            next_h = bh[jn];
+            next_f = bf[jn];
+            next_c = bc[jn];
+          }
+          __syncwarp();
         }
-        __syncwarp();
       }
       Word in_h = __shfl_up_sync(kFull, out_h, 1);
       Word in_f = __shfl_up_sync(kFull, out_f, 1);
       Word in_c = __shfl_up_sync(kFull, out_c, 1);
       if (lane == 0) {  // column step: the top boundary or the strip above
-        in_h = first ? Cell::kH0 : stage_in[0][k];
-        in_f = first ? Cell::kTop : stage_in[1][k];
-        in_c = first ? 0 : stage_in[2][k];
+        in_h = first ? Cell::kH0 : in[0][k];
+        in_f = first ? Cell::kTop : in[1][k];
+        in_c = first ? 0 : in[2][k];
       }
       const int j = step - lane;
+      const auto col_now = col_next;
+      if (kPipe) col_next = col(min(max(j + 1, 0), N - 1));
       if (j >= 0 && j < N) {
-        const auto c = col(j);
+        const auto c = kPipe ? col_now : col(j);
         Word diag = up_prev;
         up_prev = in_h;
         Word hu = Cell::carry_in(in_h), f = in_f, cm = in_c;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) Cell::step(w[r], c, diag, hu, f, cm);
-        out_h = Cell::carry_out(hu);
+        out_h = Cell::carry_out(hu, w[kRows - 1]);
         out_f = f;
         out_c = cm;
       }
       const int j31 = step - (kWarp - 1);  // lane 31's column
       if (j31 >= 0) {
         if (lane == kWarp - 1) {
-          stage_out[0][j31 % kWarp] = out_h;
-          stage_out[1][j31 % kWarp] = out_f;
-          stage_out[2][j31 % kWarp] = out_c;
+          out[0][j31 % kWarp] = out_h;
+          out[1][j31 % kWarp] = out_f;
+          out[2][j31 % kWarp] = out_c;
         }
         if (j31 % kWarp == kWarp - 1 || j31 == N - 1) {
           __syncwarp();
-          const int jb = j31 - j31 % kWarp + lane;
-          if (jb <= j31) {
-            if (last) {
-              emit(jb, stage_out[2][lane]);
-            } else {
-              bh[jb] = stage_out[0][lane];
-              bf[jb] = stage_out[1][lane];
-              bc[jb] = stage_out[2][lane];
+          if (ring_out) {
+            ring_sync(warp + 1);  // block j31 / 32 is in the ring
+            out = ring[warp][(moved + j31 / kWarp + 1) % 2];
+          } else {
+            const int jb = j31 - j31 % kWarp + lane;
+            if (jb <= j31) {
+              if (last) {
+                emit(jb, out[2][lane]);
+              } else {
+                bh[jb] = out[0][lane];
+                bf[jb] = out[1][lane];
+                bc[jb] = out[2][lane];
+              }
+            }
+            if (kPipe && !last) {  // the wrap: publish the block to warp 0
+              __syncwarp();
+              if (lane == 0) {
+                __threadfence_block();
+                *static_cast<volatile int*>(&wrap_done) =
+                    wrap_out + j31 / kWarp + 1;
+              }
             }
           }
           __syncwarp();
@@ -389,10 +483,13 @@ __device__ __forceinline__ void sweep_columns_fixed(
   }
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory.
+// Opt a kernel into more than 48 KB of shared memory, static and dynamic.
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess || attr.sharedSizeBytes + smem <= 48 * 1024)
+    return err;
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }

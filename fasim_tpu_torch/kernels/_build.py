@@ -42,7 +42,11 @@ SIGNATURES = {
                             _I, _P, _P, _P, _P],
     "fasim_scan_strip_rows": [],
     "fasim_scan_rows": [_I],
-    "fasim_scan_codes_colmax": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "fasim_scan_codes_colmax": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                                _P],
+    "fasim_scan_codes_plan": [_I, _I, _P],
+    "fasim_scan_codes_scratch": [_I, _I, _I],
+    "fasim_scan_codes_blocks_per_sm": [_I, _I, _I],
     "fasim_window_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                              _P],

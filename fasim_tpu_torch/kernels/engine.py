@@ -20,7 +20,9 @@ Derived from qwin_fwd and qwin_rev whenever they are set, and kept on the
 device only: wtab_fwd and wtab_rev int8[mpw, 8], the per-row score tables
 (`score_table`) that K3 and K4 read.  Likewise from qp2_ssw and
 qp2_thresh: stab_ssw and stab_thresh, K1's score-class tables
-(`ScanTable`s of uint8[64 + mp2], from `scan_table`).
+(`ScanTable`s of uint8[64 + mp2], from `scan_table`); and from
+qprops_ssw and qprops_thresh: ctab_ssw and ctab_thresh, K5's
+(`CodesTable`s of uint8[64 + mp], from `scan_codes_table`).
 
 The engine runs on cuda:0 unless constructed with device="cpu".  On a
 CUDA device every device pass is a hand-written kernel; on the CPU the
@@ -49,7 +51,8 @@ from .pack import pack_candidates
 from .scan import (N_BASE, PURE, PURE_OR_PAD, ScanTable, decode_bases,
                    make_lut6, make_qp2, reverse_prefix, scan_colmax,
                    scan_colmax16, scan_table)
-from .scan_codes import apply_byte_break, make_qprops, scan_codes_colmax
+from .scan_codes import (CodesTable, apply_byte_break, make_qprops,
+                         scan_codes_colmax, scan_codes_table)
 from .window import (K3_MAX_M, WIDTHS, both_strands, gather_window_codes,
                      score_table, width_class, window_fwd, window_general,
                      window_qp)
@@ -94,7 +97,7 @@ class TorchScanEngine:
         self.m16 = _round_up(self.m, 16)
         self.query_pure = bool(PURE[rna].all())
         self._host: dict[str, np.ndarray] = {}
-        self._dev: dict[str, torch.Tensor | ScanTable] = {}
+        self._dev: dict[str, torch.Tensor | ScanTable | CodesTable] = {}
         self._set({"qp2_ssw": make_qp2(rna, SSW_ENC, "ssw"),
                    "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh"),
                    "qprops_ssw": make_qprops(rna, "ssw"),
@@ -118,6 +121,10 @@ class TorchScanEngine:
             if key in tables:
                 self._dev[key.replace("qp2", "stab")] = scan_table(
                     self._dev[key], key == "qp2_thresh")
+        for alpha in ("ssw", "thresh"):
+            if f"qprops_{alpha}" in tables:
+                self._dev[f"ctab_{alpha}"] = scan_codes_table(
+                    self._dev[f"qprops_{alpha}"], alpha)
 
     def state(self) -> dict[str, np.ndarray]:
         """Copies of the engine's tables (numpy)."""
@@ -269,13 +276,14 @@ class TorchScanEngine:
         def codes(lut):
             return torch.gather(lut[None].expand(S, T, 256), 2, sel)
 
-        cm = scan_codes_colmax(codes(d["lut_s"]), d["qprops_ssw"], self.m16,
-                               "ssw")
+        cm = scan_codes_colmax(codes(d["lut_s"]), d["qprops_ssw"],
+                               d["ctab_ssw"], self.m16, "ssw")
         if fused:
             thresh = cm.amax(-1)
         else:
             thresh = scan_codes_colmax(codes(d["lut_t"]), d["qprops_thresh"],
-                                       self.m16, "thresh").amax(-1)
+                                       d["ctab_thresh"], self.m16,
+                                       "thresh").amax(-1)
         return thresh, cm.clamp(max=255).to(torch.uint8)
 
     def scan_segments_packed(self, segs: np.ndarray, lengths: np.ndarray):
@@ -297,8 +305,8 @@ class TorchScanEngine:
         if which not in ("ssw", "thresh"):
             raise ValueError(f"unknown alphabet {which!r} (ssw|thresh)")
         return scan_codes_colmax(self._to_dev(codes, torch.uint8),
-                                 self._dev[f"qprops_{which}"], self.m16,
-                                 which)
+                                 self._dev[f"qprops_{which}"],
+                                 self._dev[f"ctab_{which}"], self.m16, which)
 
     def colmax_batch(self, codes, which: str) -> np.ndarray:
         """Engine codes int[S, T, N] of alphabet `which` (ssw | thresh; a

@@ -109,38 +109,46 @@ class ScanTable(NamedTuple):
     thresh_alphabet: bool
 
 
+def class_table(s: torch.Tensor, name: str) -> torch.Tensor:
+    """The score-class table uint8[64 + rows] of query rows whose scores
+    of the codes 0..7 are s int[rows, 8] (K1's and K5's layout, read by
+    sw_colmax.cuh:CellI32Dpx).  The distinct score rows are the classes,
+    class 0 the all-zero row (the phantom rows' and the kernels' rows
+    above row 0); byte 8 * code + k is class k's score of that code plus
+    TABLE_BIAS (unused classes score 0), byte 64 + r row r's class.
+    ValueError (naming `name`) when the rows have more than SCAN_CLASSES
+    classes or a score outside [-144, 111]."""
+    if int(s.min()) < -128 - TABLE_BIAS or int(s.max()) > 127 - TABLE_BIAS:
+        raise ValueError(f"{name}: a score does not fit the table's byte")
+    rows = torch.cat([torch.zeros_like(s[:1]), s])
+    uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
+    n = uniq.shape[0]
+    if n > SCAN_CLASSES:
+        raise ValueError(f"{name}: {n} score classes (the zero row "
+                         f"included), the kernel takes {SCAN_CLASSES}")
+    # swap the zero row's class with class 0 (a swap is its own inverse)
+    perm = torch.arange(n, device=s.device)
+    zero = int(inv[0])
+    perm[0], perm[zero] = zero, 0
+    scores = torch.zeros(SCAN_CLASSES, 8, dtype=torch.int32,
+                         device=s.device)
+    scores[:n] = uniq[perm]
+    tab = (scores.t() + TABLE_BIAS).reshape(-1)
+    return torch.cat([tab, perm[inv[1:]].to(torch.int32)]).to(
+        torch.uint8).contiguous()
+
+
 def scan_table(qp: torch.Tensor, thresh_alphabet: bool) -> ScanTable:
-    """K1's table, uint8[64 + mp2], from the query rows qp2 int32[>=4, mp2]
-    of one alphabet.  The distinct score rows (a row's scores of the codes
-    0..7) are the classes, class 0 the all-zero row (the phantom rows' and
-    the kernel's rows above row 0); byte 8 * code + k is class k's score
-    of that code plus TABLE_BIAS (unused classes score 0), byte 64 + r
-    row r's class.
-    ValueError when the rows have more than SCAN_CLASSES classes (make_qp2
-    builds at most 6) or a score outside [-144, 111]."""
+    """K1's table, uint8[64 + mp2] (`class_table`), from the query rows
+    qp2 int32[>=4, mp2] of one alphabet.  ValueError when the rows have
+    more than SCAN_CLASSES classes (make_qp2 builds at most 6) or a score
+    outside [-144, 111]."""
     # each row's score of the codes 0..7, as scan_colmax_ref reads it
     c = torch.arange(8, dtype=torch.int32, device=qp.device)[None, :]
     s = torch.where(c == qp[0][:, None], qp[1][:, None], qp[2][:, None])
     if thresh_alphabet:
         s = torch.where(c == 5, qp[3][:, None], s)
-    if int(s.min()) < -128 - TABLE_BIAS or int(s.max()) > 127 - TABLE_BIAS:
-        raise ValueError("scan_table: a score does not fit the table's byte")
-    rows = torch.cat([torch.zeros_like(s[:1]), s])
-    uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
-    n = uniq.shape[0]
-    if n > SCAN_CLASSES:
-        raise ValueError(f"scan_table: {n} score classes (the zero row "
-                         f"included), the kernel takes {SCAN_CLASSES}")
-    # swap the zero row's class with class 0 (a swap is its own inverse)
-    perm = torch.arange(n, device=qp.device)
-    zero = int(inv[0])
-    perm[0], perm[zero] = zero, 0
-    scores = torch.zeros(SCAN_CLASSES, 8, dtype=torch.int32,
-                         device=qp.device)
-    scores[:n] = uniq[perm]
-    tab = (scores.t() + TABLE_BIAS).reshape(-1)
-    return ScanTable(torch.cat([tab, perm[inv[1:]].to(torch.int32)]).to(
-        torch.uint8).contiguous(), thresh_alphabet)
+    return ScanTable(class_table(s, "scan_table"), thresh_alphabet)
 
 
 def reverse_prefix(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

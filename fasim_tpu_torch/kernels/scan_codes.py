@@ -9,7 +9,11 @@ csrc/scan_codes.cu (its header says what bounds it on the card and how
 the design meets that); `scan_codes_colmax_ref` is its plain PyTorch
 version, ported from kernels/xla.py:colmax_xla with the scoring of
 tpu.py:_score_col.  `scan_codes_colmax` takes the plain version for CPU
-tensors and launches the kernel for CUDA tensors.
+tensors and launches the kernel for CUDA tensors.  The kernel reads the
+query through `scan_codes_table` (a `CodesTable`: K1's score-class layout,
+scan.py:class_table, of the `qprops` rows' scores, and the alphabet), which
+the engine builds once per alphabet, and launches on the plan
+`kernel_plan` asks the kernel library for.
 
 The query comes as the JAX engine's `qprops` rows int32[4, round_up(m16,
 128)] (`make_qprops`): q (-1 past the query), maska (ssw: q < 4; thresh:
@@ -20,12 +24,16 @@ BYTE_SAT.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..config import BYTE_SAT, GAP_EXTEND, GAP_OPEN
 from ..rules import SSW_ENC, THRESH_ENC
 from . import _build
+from .scan import SCAN_CLASSES, class_table
 
 _NEG = -(2 ** 30)
 
@@ -116,15 +124,66 @@ def scan_codes_colmax_ref(codes: torch.Tensor, qprops: torch.Tensor,
     return cm.reshape(*lead, N)
 
 
-def scan_codes_colmax(codes: torch.Tensor, qprops: torch.Tensor, m16: int,
-                      alphabet: str) -> torch.Tensor:
+class CodesTable(NamedTuple):
+    """K5's query table (`scan_codes_table`): the bytes the kernel reads
+    and the alphabet whose scores they hold, which `scan_codes_colmax`
+    checks against its own `alphabet`."""
+    data: torch.Tensor
+    alphabet: str
+
+
+def scan_codes_table(qprops: torch.Tensor, alphabet: str) -> CodesTable:
+    """K5's table, uint8[64 + mp] (scan.py:class_table), from the query
+    rows qprops int32[4, mp] of one alphabet: the rows' `score_profile`
+    of the codes 0..7.  The kernel reads no other code: as it copies a
+    code row into shared memory it folds U (4) to T (3) in the threshold
+    alphabet, where they score alike, and every code >= 8 to the
+    alphabet's pad code, which scores like it.  The ssw rows hold at most
+    6 classes (q = A, C, G, T with maska, the all-mismatch rows, the zero
+    rows past m), as do the threshold alphabet's (q = A, C, G, T or U,
+    N)."""
+    if alphabet not in PAD_CODE:
+        raise ValueError(f"scan_codes_table: unknown alphabet {alphabet!r}")
+    prof = score_profile(qprops, qprops.shape[1], alphabet)
+    return CodesTable(class_table(prof[:SCAN_CLASSES].t(),
+                                  "scan_codes_table"), alphabet)
+
+
+def kernel_plan(rows: int, m16: int) -> tuple[int, int]:
+    """(rows a lane, warps a code row's block) of the kernel's launch for
+    `rows` code rows at query length m16 (the library's
+    fasim_scan_codes_plan; needs the card)."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.lib().fasim_scan_codes_plan(rows, m16, out),
+                 "fasim_scan_codes_plan")
+    return out[0], out[1]
+
+
+def blocks_per_sm(plan: tuple[int, int], N: int) -> int:
+    """Resident blocks an SM of the launch `plan` with N columns, from the
+    CUDA occupancy calculator (needs the card)."""
+    n = _build.lib().fasim_scan_codes_blocks_per_sm(*plan, N)
+    _build.check(-min(n, 0), "fasim_scan_codes_blocks_per_sm")
+    return n
+
+
+def scan_codes_colmax(codes: torch.Tensor, qprops: torch.Tensor,
+                      tab: CodesTable, m16: int, alphabet: str,
+                      plan: tuple[int, int] | None = None) -> torch.Tensor:
     """int32[..., N] exact column maxima of the code rows uint8[..., N].
+    `tab` is `scan_codes_table(qprops, alphabet)`, which the kernel reads
+    in place of qprops; a table of the other alphabet raises ValueError on
+    every device.  `plan` (rows a lane, warps), for measuring other plans,
+    replaces `kernel_plan`'s.
 
     CPU tensors take `scan_codes_colmax_ref`; CUDA tensors launch the
     kernel (and count the launch in `scan_codes_colmax.launches`);
     anything else raises."""
     if alphabet not in PAD_CODE:
         raise ValueError(f"scan_codes_colmax: unknown alphabet {alphabet!r}")
+    if not isinstance(tab, CodesTable) or tab.alphabet != alphabet:
+        raise ValueError("scan_codes_colmax: tab must be the CodesTable of "
+                         f"the {alphabet} alphabet")
     if codes.device.type == "cpu":
         return scan_codes_colmax_ref(codes, qprops, m16, alphabet)
     if codes.device.type != "cuda":
@@ -133,22 +192,27 @@ def scan_codes_colmax(codes: torch.Tensor, qprops: torch.Tensor, m16: int,
     if codes.dtype != torch.uint8 or not codes.is_contiguous():
         raise ValueError("scan_codes_colmax: codes must be a contiguous "
                          "uint8 tensor")
-    if (qprops.device != codes.device or qprops.dtype != torch.int32
-            or not qprops.is_contiguous() or qprops.shape[0] != 4
-            or qprops.shape[1] < m16):
-        raise ValueError(f"scan_codes_colmax: qprops must be a contiguous "
-                         f"int32[4, >= m16] tensor on {codes.device}")
+    data = tab.data
+    if (data.device != codes.device or data.dtype != torch.uint8
+            or not data.is_contiguous() or data.dim() != 1
+            or data.shape[0] < 8 * SCAN_CLASSES + m16):
+        raise ValueError("scan_codes_colmax: tab must be scan_codes_table's "
+                         f"contiguous uint8 bytes on {codes.device}")
     N = codes.shape[-1]
     rows = codes.numel() // N if N else 0
     dev = codes.device
     out = torch.empty(codes.shape, dtype=torch.int32, device=dev)
+    if rows == 0:
+        return out
     lib = _build.lib()
-    bnd = (torch.empty(rows * 3 * N, dtype=torch.int32, device=dev)
-           if m16 > lib.fasim_scan_strip_rows() else None)
     with torch.cuda.device(dev):
+        per_lane, warps = plan or kernel_plan(rows, m16)
+        bnd = (torch.empty(rows * 3 * N, dtype=torch.int32, device=dev)
+               if lib.fasim_scan_codes_scratch(m16, per_lane, warps)
+               else None)
         err = lib.fasim_scan_codes_colmax(
-            codes.data_ptr(), rows, N, qprops.data_ptr(), qprops.stride(0),
-            m16, int(alphabet == "thresh"),
+            codes.data_ptr(), rows, N, data.data_ptr(), m16,
+            int(alphabet == "thresh"), PAD_CODE[alphabet], per_lane, warps,
             None if bnd is None else bnd.data_ptr(), out.data_ptr(),
             _build.stream_of(codes))
     _build.check(err, "fasim_scan_codes_colmax")

@@ -1,17 +1,21 @@
-"""K1 (the port's scan_colmax kernel) of two trees on one card, alternating.
+"""K1 and K5 (the port's scan_colmax and scan_codes_colmax kernels) of two
+trees on one card, alternating.
 
     python3 scripts/torch_k1_ab.py --parent DIR [--min-blocks N]
 
 DIR holds another checkout of the repo, e.g. the parent commit unpacked
 with `git archive` into build/.  Each round runs in a process of its own,
 in the order parent, this tree, this tree, parent, and prints one JSON line:
-K1's milliseconds (CUDA events, mean of a few runs after a warm-up) on
-the passes chip_smoke.py phase 5 times -- the ssw pass of a 64-segment
-MEG3 batch (S=64, T=48, N=5,120, m=1,582; column maxima and thresholds),
-the threshold-alphabet pass of that batch (thresholds only) and the ssw
-pass at NEAT1 length (m=22,767) -- and the ptxas registers of the tree's
-scan kernels.  The data come from one seed, so every round sees the same
-inputs; the script fails unless every round's outputs are equal.
+the milliseconds (CUDA events, mean of a few runs after a warm-up) of the
+passes chip_smoke.py phase 5 times -- K1's ssw pass of a 64-segment MEG3
+batch (S=64, T=48, N=5,120, m=1,582; column maxima and thresholds), its
+threshold-alphabet pass of that batch (thresholds only) and its ssw pass
+at NEAT1 length (m=22,767); K5's ssw and threshold passes at the
+per-segment shape (48 code rows x 5,000, m=1,582), its ssw pass on a
+packed batch (64 x 48 x 5,120) and on the per-segment rows at NEAT1
+length -- and the ptxas registers of the tree's scan kernels.  The data
+come from one seed, so every round sees the same inputs; the script fails
+unless every round's outputs are equal.
 
 --min-blocks N also builds a copy of this tree whose K1 has a launch bound
 of N one-warp blocks an SM in place of its own (csrc/scan.cu kMinBlocks)
@@ -37,7 +41,8 @@ S, N, SEG_LEN = 64, 5120, 5000
 
 
 def _registers(build_log: str) -> dict[str, int]:
-    """Registers of each scan_colmax kernel entry in a ptxas report."""
+    """Registers of each scan_colmax and scan_codes kernel entry in a ptxas
+    report."""
     regs, entry = {}, None
     for line in build_log.splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
@@ -45,7 +50,8 @@ def _registers(build_log: str) -> dict[str, int]:
             entry = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
         if found and entry:
-            name = re.search(r"scan_colmax_kernelI(\w+?)E", entry)
+            name = re.search(r"(scan_(?:colmax|codes)_kernelI\w+?E)E",
+                             entry)
             if name:
                 regs[name.group(1)] = int(found.group(1))
             entry = None
@@ -64,6 +70,7 @@ def worker(tree: str, name: str) -> dict:
     from fasim_tpu_torch.kernels import _build
     from fasim_tpu_torch.kernels.engine import TorchScanEngine
     from fasim_tpu_torch.kernels.scan import decode_bases, scan_colmax
+    from fasim_tpu_torch.kernels.scan_codes import scan_codes_colmax
 
     assert _build.__file__.startswith(os.path.abspath(tree)), _build.__file__
     dev = torch.device("cuda:0")
@@ -114,6 +121,27 @@ def worker(tree: str, name: str) -> dict:
         cm, gm = run()
         out["sums"][label] = [int(gm.sum()), int(gm.max()),
                               None if cm is None else int(cm.sum())]
+    k5_tab = "tab" in inspect.signature(scan_codes_colmax).parameters
+    for label, m, alpha, shape, reps in (
+            ("k5_ssw", MEG3_M, "ssw", (1, 48, SEG_LEN), 5),
+            ("k5_thresh", MEG3_M, "thresh", (1, 48, SEG_LEN), 5),
+            ("k5_packed", MEG3_M, "ssw", (S, 48, N), 3),
+            ("k5_neat1", NEAT1_M, "ssw", (1, 48, SEG_LEN), 2)):
+        eng = TorchScanEngine(dna(m), device=dev)
+        codes = torch.from_numpy(rng.integers(0, 4, shape).astype(
+            np.uint8)).to(dev)  # A C G T in either alphabet
+        d = eng._dev
+        args = [codes, d[f"qprops_{alpha}"]]
+        if k5_tab:
+            args.append(d[f"ctab_{alpha}"])
+        args += [eng.m16, alpha]
+
+        def run5():
+            return scan_codes_colmax(*args)
+
+        out["ms"][label] = ms(run5, reps)
+        cm = run5()
+        out["sums"][label] = [int(cm.sum()), int(cm.max())]
     out["registers"] = _registers(
         (_build.BUILD_DIR / "build.log").read_text())
     return out

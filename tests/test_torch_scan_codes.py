@@ -204,11 +204,13 @@ def test_scan_codes_wrapper_rejects_other_devices():
     meta = torch.device("meta")
     codes = torch.zeros(2, 8, dtype=torch.uint8, device=meta)
     qprops = torch.zeros(4, 128, dtype=torch.int32, device=meta)
+    tab = scan_codes.CodesTable(torch.zeros(192, dtype=torch.uint8,
+                                            device=meta), "ssw")
     before = scan_codes.scan_codes_colmax.launches
     with pytest.raises(ValueError, match="unsupported device"):
-        scan_codes.scan_codes_colmax(codes, qprops, 16, "ssw")
+        scan_codes.scan_codes_colmax(codes, qprops, tab, 16, "ssw")
     with pytest.raises(ValueError, match="unknown alphabet"):
         scan_codes.scan_codes_colmax(torch.zeros(2, 8, dtype=torch.uint8),
                                      torch.zeros(4, 128, dtype=torch.int32),
-                                     16, "sw")
+                                     tab, 16, "sw")
     assert scan_codes.scan_codes_colmax.launches == before

@@ -109,6 +109,33 @@ def test_scan_tables_follow_qp2_through_load_state():
             assert torch.equal(got.data, want.data), key
 
 
+def test_codes_tables_follow_qprops_through_load_state():
+    """K5's score-class tables (`scan_codes_table`, device only, not in
+    `state()`) are rebuilt whenever qprops_ssw / qprops_thresh are set: an
+    engine loaded with the JAX engine's qprops (a U and N query) holds the
+    tables a fresh engine builds and gives its K5 output."""
+    from fasim_tpu_torch.kernels.scan_codes import scan_codes_table
+    from fasim_tpu_torch.rules import SSW_ENC, THRESH_ENC
+
+    rna = _rna(13, 91, b"ACGTUN")
+    fresh = TorchScanEngine(rna, device="cpu")
+    loaded = TorchScanEngine(_rna(14, 91), device="cpu")
+    jax = _jax_tables(rna, rules.scan_list(0, 0)[:4])
+    loaded.load_state({k: jax[k] for k in ("qprops_ssw", "qprops_thresh")})
+    seg = _rna(15, 3 * 150, b"ACGTUNa").reshape(1, 3, 150)
+    for alpha, enc in (("ssw", SSW_ENC), ("thresh", THRESH_ENC)):
+        key = f"ctab_{alpha}"
+        assert key not in loaded.state()
+        want = scan_codes_table(
+            torch.from_numpy(jax[f"qprops_{alpha}"].copy()), alpha)
+        for eng in (fresh, loaded):
+            assert eng._dev[key].alphabet == alpha
+            assert torch.equal(eng._dev[key].data, want.data), key
+        codes = enc[seg]
+        np.testing.assert_array_equal(loaded.colmax_batch(codes, alpha),
+                                      fresh.colmax_batch(codes, alpha))
+
+
 def test_engine_on_jax_state_equals_xla():
     """Both packages driven from identical state: the port engine loaded
     with the JAX tables reproduces XlaScanEngine on scans and windows."""
