@@ -33,9 +33,9 @@ Phases, each printing one line with its seconds:
      warps, strips > warps through the scratch row, one warp over several
      strips) with codes >= 8 in the rows, in both alphabets (the
      per-segment shape, a short query, a packed batch, impure codes with a
-     U query, a GA-rich row past 251, a NEAT1-length query) and the
-     engine's per-segment call on the card against the same call on a CPU
-     engine;
+     U query, a GA-rich row past 251, a NEAT1-length query, rows of 5 and
+     40 columns) and the engine's per-segment call on the card against
+     the same call on a CPU engine;
   4. e2e     — in this process, every output file and stdout (except
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
@@ -852,6 +852,11 @@ class Smoke:
                      [self.dna(int(n)) for n in
                       self.rng.integers(600, 1001, T)], 1000,
                      plans=(None, (8, 2), (2, 4)), high=0.02)
+        # few columns: less than one 32-column block, and a block and a
+        # bit, through the rings and through the scratch row
+        for n in (5, 40):
+            self.k5_case(f"{n} columns", rna, [self.dna(n) for _ in range(T)],
+                         n, plans=(None, (13, 2)), high=0.02)
         packed = [self.dna(5120) for _ in range(64 * T)]
         self.k5_case("packed batch", rna, packed, 5120, ("ssw",),
                      shape=(64, T, 5120), high=0.01)
