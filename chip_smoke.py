@@ -26,9 +26,11 @@ Phases, each printing one line with its seconds:
      of mismatched offsets, at MEG3 and NEAT1 length, and on the real
      forward and reverse specs, the engine's gates (at m = K3_MAX_M
      uniform forward specs on K3 and reverse specs on window_general,
-     one row past it both on window_general32), K6
-     window_keys on every width class (two 64-column windows per row
-     included) and on the same specs, K5 scan_codes_colmax on its
+     one row past it both on window_general32), K6 window_v1 (ends) and
+     its long-query kernel window_keys (keys, two 64-column windows per
+     row included) against their plain chain on the same cases as K4 and
+     on K3's width classes, and at K6's gate (largest mreal K6_MAX_MREAL
+     on window_v1, one row past it on window_keys), K5 scan_codes_colmax on its
      library's launch plan and at the plan's edges (one strip, strips =
      warps, strips > warps through the scratch row, one warp over several
      strips) with codes >= 8 in the rows, in both alphabets (the
@@ -48,16 +50,19 @@ Phases, each printing one line with its seconds:
      22,767 nt), malat1 (MALAT1, 8,708 nt) and meg3_sub64 through the
      CLI (K1, K3, K4), and meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records)
      through the CLI, by default (K1, K3, K4) and under FASIM_SCAN16=1
-     FASIM_WIN_V1=1 (K7, K6; no K1, K3 or K4); no run launches K4's int32
-     kernel;
+     FASIM_WIN_V1=1 (K7, K6's window_v1; no K1, K3 or K4); no run launches
+     the long-query kernels window_general32 and window_keys;
   5. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K1's ssw pass with its G
      cells/s, the SASS count of its step loop a cell (sass_loop), the
      integer ops/s that loop executes, the count of its column block
      alone, its resident warps an SM and waves, then
      K1's threshold pass and K1 at NEAT1 length on the full batch (kernel
-     only) with its int32 bound; K7 at K1's shape, K6 on K3's forward and
-     K4's reverse dispatch; on K3's dispatch also the int32 layout K3 had
+     only) with its int32 bound; K7 at K1's shape, K6 (window_v1 beside
+     K4's window_general, its long-query kernel window_keys, and the whole
+     v1 pass before and after window_v1) on K3's forward and K4's reverse
+     dispatch, and the ptxas registers of K4's and K6's pair kernels;
+     on K3's dispatch also the int32 layout K3 had
      before (window_general32 with the uniform specs), K4 on those specs,
      and the dispatch's rlen histogram; on K4's dispatch
      K4's int32 kernel, each width class's time, bound and swept cells,
@@ -264,6 +269,8 @@ class Smoke:
                         "fasim_tpu/kernels/tpu.py:974"),
         "scan_colmax16": ("fasim_tpu_torch/csrc/scan16.cu",
                           "fasim_tpu/kernels/tpu.py:911"),
+        "window_v1": ("fasim_tpu_torch/csrc/window_v1.cu",
+                      "fasim_tpu/kernels/tpu.py:1364"),
         "window_keys": ("fasim_tpu_torch/csrc/window_v1.cu",
                         "fasim_tpu/kernels/tpu.py:1364"),
         "window_fwd": ("fasim_tpu_torch/csrc/window_fwd.cu",
@@ -521,8 +528,9 @@ class Smoke:
 
     def window_checks(self, segs, lens, eng) -> None:
         """K3 and K6 on every width class, incl. rlens in (196, 256], of
-        windows gathered from a batch; K3 on a NEAT1-length query and on
-        both sides of its gate."""
+        windows gathered from a batch; K3 on a NEAT1-length query; K4 and K6
+        on random reverse windows at MEG3 and NEAT1 length; the gates of
+        K3, K4 and K6."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.window import (
@@ -556,14 +564,15 @@ class Smoke:
             self.compare("window_fwd", got, want, f"rlens {lo}..{hi}")
             print(f"  K3 rlens {lo}..{hi} (W={W}): {rows} rows equal, "
                   f"best max {int(want[:, 0].max())}")
-            n = self.k6_compare(codes, full(0), full(eng.m16), eng, False,
-                                f"rlens {lo}..{hi}")
-            print(f"  K6 rlens {lo}..{hi} (W={W}): {n} kernel rows, keys "
-                  "equal")
+            self.k6_compare(codes, full(0), full(-1), spec[4], full(eng.m16),
+                            eng, False, f"rlens {lo}..{hi}")
+            print(f"  K6 (both kernels) rlens {lo}..{hi} (W={W}): {rows} "
+                  "rows equal")
         self.k3_neat1()
         for m in (MEG3_M, NEAT1_M):
             self.k4_checks(m)
         self.gates()
+        self.k6_gate()
 
     def spec_checks(self) -> None:
         """K4, K3 and K6 on the specs of a real candidate stage."""
@@ -595,11 +604,12 @@ class Smoke:
                             part["rlens"], self.cap_eng.m,
                             self.cap_eng.m16), want, f"fwd specs W={W}")
                     n += codes.shape[0]
-                    self.k6_compare(codes, part["offs"], part["mreals"],
+                    self.k6_compare(codes, part["offs"], part["terms"],
+                                    part["rlens"], part["mreals"],
                                     self.cap_eng, rev, f"specs W={W}")
             print(f"  {'K4' if rev else 'K3, K4'} (both K4 kernels), K6 "
-                  f"{'reverse' if rev else 'forward'} specs of a real "
-                  f"candidate stage: {n} rows equal (K6: keys)")
+                  f"(both kernels) {'reverse' if rev else 'forward'} specs "
+                  f"of a real candidate stage: {n} rows equal")
 
     # -- K3 --------------------------------------------------------------
 
@@ -635,13 +645,16 @@ class Smoke:
     # -- K4 --------------------------------------------------------------
 
     def k4_checks(self, m: int) -> None:
-        """K4's 16-bit kernel and its int32 kernel against the plain version
-        on every width class, at query length m, on reverse-query rows with
+        """K4's 16-bit kernel and its int32 kernel against the plain version,
+        and K6's two kernels against their plain chain, on every width
+        class, at query length m, on reverse-query rows with
         random offs (half the windows copy the query from their offset on,
         mutated), terms (none, or near the window's best: real cuts) and
         mreals: once with few distinct offsets (pairs share their start
         row) and mreals m..m+15, once with distinct offsets (every pair
-        mismatches) and mreals m-8..m+15."""
+        mismatches) and mreals m-8..m+15.  K6 takes each width's cases in
+        one call (its plain chain steps every query row, whatever the
+        rows)."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.window import (window_general,
@@ -657,6 +670,7 @@ class Smoke:
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 self.dev)
 
+        k6 = {}  # W -> the cases' (codes, offs, terms, rlens, mreals)
         for lo, hi, W in ((1, 32, 64), (33, 64, 64), (1, 64, 64),
                           (65, 128, 128), (129, 256, 256)):
             for pairs in ("shared", "mismatched"):
@@ -692,9 +706,16 @@ class Smoke:
                              what)
                 self.compare("window_general32", window_general32(*args),
                              want, what)
+                k6.setdefault(W, []).append(
+                    (codes_d, *map(dev, (offs, terms, rl, mreals))))
                 print(f"  K4 (both kernels) {what} (W={W}): {rows} rows "
                       f"equal, best max {int(want[:, 0].max())}, max "
                       f"end_row {int(want[want[:, 0] > 0, 2].max())}")
+        for W, cases in k6.items():
+            cols = [torch.cat(c) for c in zip(*cases)]
+            self.k6_compare(*cols, eng, True, f"m={m} W={W}")
+            print(f"  K6 (both kernels) m={m}, the {len(cases)} cases of "
+                  f"W={W} above: {int(cols[0].shape[0])} rows equal")
 
     def gates(self) -> None:
         """The engine's 16-bit row gates: at m = K3_MAX_M uniform forward
@@ -765,19 +786,89 @@ class Smoke:
 
     # -- K6 --------------------------------------------------------------
 
-    def k6_compare(self, codes, offs, mreals, eng, rev: bool,
-                   what: str) -> int:
-        """K6 keys vs its plain version on one width class; the number of
-        kernel rows."""
-        from fasim_tpu_torch.kernels.window_v1 import (v1_rows, window_keys,
-                                                       window_keys_ref)
+    def k6_compare(self, codes, offs, terms, rlens, mreals, eng,
+                   rev: bool, what: str) -> None:
+        """K6's kernel (window_v1, ends) and its long-query kernel
+        (window_keys, keys in the v1 rows) against the plain chain
+        window_keys_ref -> decode_key -> ends_from_stats on one width
+        class, on eng's query codes and score table."""
+        from fasim_tpu_torch.kernels.window_v1 import (
+            decode_key, ends_from_stats, v1_rows, window_keys,
+            window_keys_ref, window_v1)
 
+        n, w = codes.shape
+        qc = eng._qcodes(rev)
         rows, o, mr, subw = v1_rows(codes, offs, mreals)
-        args = (rows, eng._qcodes(rev), o, mr, eng.m, subw)
-        self.compare("window_keys", window_keys(*args),
-                     window_keys_ref(*args),
-                     f"{'rev' if rev else 'fwd'} {what}")
-        return rows.shape[0]
+        args = (rows, qc, o, mr, eng.m, subw)
+        keys = window_keys_ref(*args)
+        what = f"{'rev' if rev else 'fwd'} {what}"
+        self.compare("window_keys", window_keys(*args), keys, what)
+        mx, mrow = decode_key(keys.reshape(-1, w)[:n])
+        want = ends_from_stats(mx, mrow, terms, rlens, eng.m)
+        tab = eng._dev["wtab_rev" if rev else "wtab_fwd"]
+        self.compare("window_v1", window_v1(codes, qc, offs, terms, rlens,
+                                            mreals, eng.m, tab), want, what)
+
+    def k6_gate(self) -> None:
+        """K6's 16-bit row gate: at a query of K6_MAX_MREAL - 14 rows, whose
+        query rows pass K6_MAX_MREAL, a dispatch whose largest mreal is
+        K6_MAX_MREAL launches K6's kernel only, one whose largest mreal is
+        one row past it the long-query kernel only; both equal the plain
+        chain.  The launches are printed here, not in the report's
+        main-path counts."""
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.window_v1 import (K6_MAX_MREAL, v1_ends,
+                                                       window_keys_ref,
+                                                       window_v1)
+
+        m = K6_MAX_MREAL - 14
+        eng = self.engine(self.dna(m))
+        qc = eng._qcodes(True)
+        q = qc[:m].cpu().numpy()
+        rows, W = 200, 64
+        rl = self.rng.integers(10, W + 1, rows)
+        offs = np.concatenate([self.rng.integers(0, m, rows - 4),
+                               [m - 40, m - 20, m - 5, m - 1]])
+        codes = self.rng.integers(0, 5, (rows, W)).astype(np.uint8)
+        for r in range(rows):  # copy the query from the offset, mutated
+            n = min(m - offs[r], rl[r])
+            piece = q[offs[r]:offs[r] + n].copy()
+            muts = self.rng.random(n) < 0.15
+            piece[muts] = self.rng.integers(0, 5, int(muts.sum()))
+            codes[r, :n] = piece
+        codes[np.arange(W)[None, :] >= rl[:, None]] = 4
+        mreals = m + self.rng.integers(0, 14, rows)
+        mreals[-3:] = K6_MAX_MREAL  # the last keyed row of the gate
+        mreals[-1] = K6_MAX_MREAL + 1  # one past it
+        terms = np.where(self.rng.random(rows) < 0.5, -1,
+                         self.rng.integers(0, 40, rows))
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+        cols = [dev(codes), *(dev(a.astype(np.int32)) for a in (
+            offs, terms, rl, mreals))]
+        want = v1_ends(cols[0], qc, *cols[1:], m, keys=window_keys_ref)
+        long_launches = 0
+        for what, n, kernel in (
+                (f"largest mreal {K6_MAX_MREAL}", rows - 1, "window_v1"),
+                (f"largest mreal {K6_MAX_MREAL + 1}", rows, "window_keys")):
+            c, o, t, r, mr = (a[:n].contiguous() for a in cols)
+            self.reset_counts()
+            got = window_v1(c, qc, o, t, r, mr, m, eng._dev["wtab_rev"])
+            torch.cuda.synchronize()
+            counts = self.read_counts()
+            require(counts[kernel] > 0 and sum(counts.values())
+                    == counts[kernel], f"K6 gate, m={m}, {what}: launches "
+                    f"{counts}, want {kernel}")
+            long_launches += counts["window_keys"]
+            self.compare(kernel, got, want[:n], f"gate m={m} {what}")
+            print(f"  K6 gate, m={m} ({qc.numel()} query rows): {what} on "
+                  f"{kernel} only, {n} rows equal, max end_row "
+                  f"{int(want[:n][want[:n, 0] > 0, 2].max())}")
+        print(f"  window_keys launches in the K6 gate check (not a main "
+              f"path): {long_launches}")
 
     # -- K5 --------------------------------------------------------------
 
@@ -1034,6 +1125,7 @@ class Smoke:
 
         return {"scan_colmax": scan.scan_colmax,
                 "scan_colmax16": scan.scan_colmax16,
+                "window_v1": window_v1.window_v1,
                 "window_keys": window_v1.window_keys,
                 "window_fwd": window.window_fwd,
                 "window_general": window.window_general,
@@ -1048,8 +1140,9 @@ class Smoke:
         return {k: fn.launches for k, fn in self.wrappers().items()}
 
     K135 = ("scan_colmax", "window_fwd", "window_general")
-    # every golden query is shorter than K3_MAX_M rows
-    LONG = ("window_general32",)
+    # every golden query is shorter than K3_MAX_M rows: no run takes the
+    # long-query kernels of K4 and K6
+    LONG = ("window_general32", "window_keys")
     SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
     # (golden case, DNA, RNA, extra flags, driver, environment, kernels of
     # its path, kernels it must not launch, whether it is a main path whose
@@ -1080,7 +1173,7 @@ class Smoke:
         ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135, LONG,
          True),
         ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", SWITCHED,
-         ("scan_colmax16", "window_keys"), K135 + LONG, True),
+         ("scan_colmax16", "window_v1"), K135 + LONG, True),
     )
 
     def phase_e2e(self) -> None:
@@ -1108,18 +1201,29 @@ class Smoke:
     # -- phase 5 ---------------------------------------------------------
 
     def phase_times(self) -> None:
+        self.k1_times()
+        self.window_times()
+        self.k5_times()
+        for name, regs in ptxas_registers().items():
+            print(f"  ptxas registers {short_name(name)}: {regs}")
+
+    def window_times(self) -> None:
+        """K3, K4 and K6 (each with its long-query kernel) on the largest
+        forward and reverse window dispatch of a real candidate stage."""
         np = self.np
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
                                                     window_general32,
                                                     window_pass_ref)
-        from fasim_tpu_torch.kernels.window_v1 import (v1_rows, window_keys,
-                                                       window_keys_ref)
+        from fasim_tpu_torch.kernels.window_v1 import (v1_ends, v1_rows,
+                                                       window_keys,
+                                                       window_keys_ref,
+                                                       window_v1)
 
-        self.k1_times()
-
-        # the largest forward and reverse dispatch of the meg3sub64 batch
-        k6_ms, k6_plain, k6_ops, k6_bytes = [], [], 0.0, 0
+        # the largest forward and reverse dispatch of the meg3sub64 batch;
+        # K6's numbers (both kernels) are those of both dispatches
+        k6 = {k: {"ms": 0.0, "plain": 0.0, "ops": 0.0, "bytes": 0}
+              for k in ("window_v1", "window_keys")}
         for kernel, rev in (("window_fwd", False), ("window_general", True)):
             calls = [c for c in self.capture if c[3] == rev]
             segs_c, lens_c, spec, _ = max(calls,
@@ -1128,12 +1232,20 @@ class Smoke:
             qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
             tab = self.cap_eng._dev["wtab_rev" if rev else "wtab_fwd"]
             m, m16 = self.cap_eng.m, self.cap_eng.m16
+            qc = self.cap_eng._qcodes(rev)
 
-            def run(how, parts=parts, qp=qp, tab=tab):
+            def run(how, parts=parts, qp=qp, tab=tab, qc=qc):
                 for _, codes, part in parts:
                     args = (codes, qp, part["offs"], part["terms"],
                             part["rlens"], part["mreals"], m)
-                    if how == "plain":
+                    v1_args = (codes, qc, *args[2:])
+                    if how == "window_v1":
+                        window_v1(*v1_args, tab)
+                    elif how == "v1_ends":  # the parent's K6: int32 keys
+                        v1_ends(*v1_args, keys=window_keys)
+                    elif how == "v1_plain":
+                        v1_ends(*v1_args)
+                    elif how == "plain":
                         window_pass_ref(*args)
                     elif how == "window_general":
                         window_general(*args, tab)
@@ -1172,12 +1284,15 @@ class Smoke:
                 # on its 16-bit kernel
                 old_ms = self.cuda_ms(lambda: run("window_general32"), 5)
                 k4_ms = self.cuda_ms(lambda: run("window_general"), 5)
+                k6_ms = self.cuda_ms(lambda: run("window_v1"), 5)
                 print(f"  K3 window_fwd {self.ms[kernel]:.3f} ms against "
                       f"the int32 layout (window_general32, uniform specs) "
                       f"{old_ms:.3f} ms and K4's 16-bit kernel "
                       f"(window_general) {k4_ms:.3f} ms on the same "
                       "dispatch")
             else:
+                k4_ms = self.ms[kernel]
+                k6_ms = self.cuda_ms(lambda: run("window_v1"), 5)
                 self.ms["window_general32"] = self.cuda_ms(
                     lambda: run("window_general32"), 5)
                 self.plain_ms["window_general32"] = self.plain_ms[kernel]
@@ -1187,30 +1302,51 @@ class Smoke:
                       f"{self.ms['window_general32']:.3f} ms on the same "
                       f"dispatch")
                 self.k4_sweep(spec, parts, qp, tab, m, cells)
-            # K6 on the same dispatch, in the v1 rows
-            k6 = [v1_rows(c, p["offs"], p["mreals"]) for _, c, p in parts]
-            qc = self.cap_eng._qcodes(rev)
+            # K6 on the same dispatch: its kernel beside K4's, its
+            # long-query kernel in the v1 rows, and the whole v1 pass as the
+            # engine calls it before this kernel (int32 keys and the ends
+            # glue) and now (window_v1)
+            rows6 = [v1_rows(c, p["offs"], p["mreals"]) for _, c, p in parts]
 
-            def run6(fn, k6=k6, qc=qc):
-                for rows6, o, mr, subw in k6:
-                    fn(rows6, qc, o, mr, m, subw)
+            def keys6(fn, rows6=rows6, qc=qc):
+                for codes6, o, mr, subw in rows6:
+                    fn(codes6, qc, o, mr, m, subw)
 
-            k6_ms.append(self.cuda_ms(lambda: run6(window_keys), 5))
-            k6_plain.append(self.cuda_ms(lambda: run6(window_keys_ref), 1,
-                                         warm=False))
-            k6_ops += ops_per_cell("window_keys", m16) * cells
-            k6_bytes += sum(5 * int(r.numel()) + 8 * int(o.numel())
-                            for r, o, _, _ in k6) + 4 * int(qc.numel())
-            print(f"  K6 window_keys, the same dispatch in "
-                  f"{sum(int(r.shape[0]) for r, *_ in k6)} v1 rows: kernel "
-                  f"{k6_ms[-1]:.3f} ms, plain {k6_plain[-1]:.3f} ms")
-        # K6's numbers are those of both dispatches
-        self.ms["window_keys"] = sum(k6_ms)
-        self.plain_ms["window_keys"] = sum(k6_plain)
-        self.work["window_keys"] = (k6_ops, k6_bytes)
-        self.k5_times()
-        for name, regs in ptxas_registers().items():
-            print(f"  ptxas registers {short_name(name)}: {regs}")
+            keys_ms = self.cuda_ms(lambda: keys6(window_keys), 5)
+            before_ms = self.cuda_ms(lambda: run("v1_ends"), 5)
+            k6["window_v1"]["ms"] += k6_ms
+            k6["window_keys"]["ms"] += keys_ms
+            k6["window_v1"]["plain"] += self.cuda_ms(
+                lambda: run("v1_plain"), 1, warm=False)
+            k6["window_keys"]["plain"] += self.cuda_ms(
+                lambda: keys6(window_keys_ref), 1, warm=False)
+            for name in k6:
+                k6[name]["ops"] += ops_per_cell(name, m16) * cells
+            k6["window_v1"]["bytes"] += code_bytes + rows * 28 + 8 * int(
+                qc.numel())
+            k6["window_keys"]["bytes"] += sum(
+                5 * int(r.numel()) + 8 * int(o.numel())
+                for r, o, _, _ in rows6) + 4 * int(qc.numel())
+            print(f"  K6 window_v1, the same dispatch: {k6_ms:.3f} ms = "
+                  f"{k6_ms / k4_ms:.3f}x K4's window_general ({k4_ms:.3f} "
+                  f"ms); its long-query kernel window_keys in "
+                  f"{sum(int(r.shape[0]) for r, *_ in rows6)} v1 rows "
+                  f"{keys_ms:.3f} ms; the whole v1 pass as the engine calls "
+                  f"it: before (window_keys and the ends glue) "
+                  f"{before_ms:.3f} ms, now (window_v1) {k6_ms:.3f} ms")
+        for name, v in k6.items():
+            self.ms[name] = v["ms"]
+            self.plain_ms[name] = v["plain"]
+            self.work[name] = (v["ops"], v["bytes"])
+        print(f"  K6 window_v1 on both dispatches {k6['window_v1']['ms']:.3f}"
+              f" ms (window_keys {k6['window_keys']['ms']:.3f} ms)")
+        pairs = sorted((short_name(e), r) for e, r in
+                       ptxas_registers().items()
+                       if "window_pairs_kernel" in e)
+        for policy, name in ((0, "K4"), (1, "K6")):
+            print(f"  ptxas registers {name} (window_pairs_kernel at 64 / 128 "
+                  "/ 256 columns): " + " / ".join(
+                      str(r) for e, r in pairs if e.endswith(f"Lb{policy}E")))
 
     def k1_times(self) -> None:
         """K1 on the main-path batch of phase 3: its ssw pass against the

@@ -1,33 +1,57 @@
-// K6 window_keys: the v1 candidate-window pass, per window column the
-// stats key of its affine-gap Smith-Waterman column max and the first
-// query row attaining it.
+// K6: the v1 candidate-window pass (FASIM_WIN_V1=1), returning the
+// scan-order ends (best, end_col, end_row) of one affine-gap
+// Smith-Waterman pass of the query against each window.
 //
 // Replaces fasim_tpu/kernels/tpu.py:_window_kernel (pallas_call in
 // _window_call; callers window_pass, _window_specs_call and
-// _window_specs_call2 under FASIM_WIN_V1=1).  Contract, per window column
-// (lane) l of a kernel row: the key
-//   max over query rows t < min(mreal, nq) of (H(t, l) << 20) + (0xFFFFF - t),
-// starting from 0xFFFFF - (m - 1), where H is the exact DP (gap open 16,
-// extend 4) of the streamed query codes q[t] (-1 past m) against the
-// window's codes, with s = 5 iff code == q[t] and q[t] < 4, else -4, and
-// s = 0 on rows t < off and t >= m (zero-profile prefix rows and phantom
-// rows).  A row of 128 lanes may hold two independent 64-column windows
-// (subw = 64): no DP state crosses lane 64, and each half has its own off
-// and mreal.  The ends (best, end_col, end_row) are reduced from the keys
-// by the caller (kernels/window_v1.py).
+// _window_specs_call2 under FASIM_WIN_V1=1) and the ends glue after it
+// (_decode_key, _ends_from_stats).  Contract: per window column, the key
+//   max over rows t < min(mreal, nq) of (H(t, col) << 20) + (0xFFFFF - t),
+// where H is the exact DP (gap open 16, extend 4) of the query codes q[t]
+// (-1 past m) against the window's codes, with s = 5 iff code == q[t] and
+// q[t] < 4, else -4, and s = 0 on rows t < off and t >= m (zero-profile
+// prefix rows and phantom rows, which count with their own row index);
+// then the ends as _ends_from_stats takes them from the keys: the columns
+// after the first one < rlen whose max equals terms (terms >= 0) are cut,
+// end_col is the first column < rlen attaining the best, end_row the
+// first row attaining that column's max, and a best <= 0 gives (0, -1,
+// m - 1).
 //
-// Rows below off have H = 0, so their keys are 0xFFFFF - t, whose maximum
-// 0xFFFFF (row 0) is the starting key whenever mreal > 0; the sweep starts
-// at row off and stops at min(mreal, nq) (later rows change no key).
+// Two kernels, routed by shape in kernels/window_v1.py:
 //
-// What bounds it on this card: integer ALU throughput, ~18 operations per
-// cell and no memory traffic beyond the window codes, the query codes (L1
-// hits) and the keys.  Design: K3/K4's layout (window.cu) -- one warp per
-// kernel row, lane k owning C consecutive columns, the warp sweeping the
-// query rows as a diagonal wavefront, H and E of the column left of a
-// lane's block passed right by shuffles, F and the keys in registers.
-// With two windows per row each half-warp is a wavefront of its own: the
-// shuffles run in 16-lane segments, so lane 16 starts window B's column 0.
+// fasim_window_v1, the pass: window_pairs.cuh's sweep, K4's design (two
+// windows a register in the s16x2 cell of window_s16.cuh, each swept from
+// its own offset in a dispatch sorted by (short, offset), the ends reduced
+// in the kernel), with v1's statistics: every row t < min(mreal, nq) is
+// keyed, phantom rows too, as (H << 16) | (0xFFFF - t), which orders (H,
+// -t) as v1's 20-bit key does (H <= 5 * min(m, 256) = 1,280); no packed
+// max is kept.  v1's starting key 0xFFFFF - (m - 1) and the keys of the
+// rows below off (H = 0) have no counterpart: they only decide columns
+// whose max is 0, and a column whose max is 0 never reaches the ends (a
+// best <= 0 gives (0, -1, m - 1)).  So keyed rows must be < 65,536: nq <=
+// 65,536 or every mreal <= 65,536.  What bounds it on this card: integer
+// ALU throughput, 6 operations per two cells and the row key's prmt and
+// max a cell (no memory traffic beyond the window codes, the per-row
+// inputs, the score table, an L1/L2 hit, and the ends).
+//
+// fasim_window_keys, the long-query kernel (keyed rows past 65,536): the
+// keys int32[rows, W] of the contract above, the ends reduced by the
+// caller (kernels/window_v1.py:v1_ends).  What bounds it on this card:
+// integer ALU throughput, ~18 operations per cell and no memory traffic
+// beyond the window codes, the query codes (L1 hits) and the keys.
+// Design: one warp per kernel row, lane k owning C consecutive columns,
+// the warp sweeping the query rows as a diagonal wavefront, H and E of the
+// column left of a lane's block passed right by shuffles, F and the keys
+// in registers.  A row of 128 lanes may hold two independent 64-column
+// windows (subw = 64): no DP state crosses lane 64, each half has its own
+// off and mreal, and each half-warp is a wavefront of its own (the
+// shuffles run in 16-lane segments, so lane 16 starts window B's column
+// 0).  Rows below off have H = 0, so their keys are 0xFFFFF - t, whose
+// maximum 0xFFFFF (row 0) is the starting key whenever mreal > 0; the
+// sweep starts at row off and stops at min(mreal, nq) (later rows change
+// no key).
+#include "window_pairs.cuh"
+
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -36,12 +60,9 @@ namespace {
 
 constexpr int kGapOpen = 16;
 constexpr int kGapExtend = 4;
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 4;
 constexpr int kNeg = -(1 << 30);
 constexpr int kKeyBits = 20;
 constexpr int kKeyMask = (1 << kKeyBits) - 1;
-constexpr unsigned kFull = 0xffffffffu;
 
 // C columns per lane; kLanes lanes per window (32: one window per row, 16:
 // two 64-column windows per 128-column row).
@@ -130,6 +151,23 @@ int launch(const void* codes, const void* qc, int nq, const void* offs,
 }  // namespace
 
 extern "C" {
+
+// codes uint8[rows, Wp] (Wp in {64, 128, 256}); tab int8[>= tab_rows, 8]
+// per-row score table with the zero-score code 7, scoring 0 on rows >= m
+// (kernels/window.py:score_table); tab_rows the query rows nq of the
+// pass; offs, mreals, terms and rlens int32[rows]; order and n_first K4's
+// (kernels/window.py:offset_order, K4_SHORT); out int32[rows, 3].  Needs
+// tab_rows > m and every keyed row min(mreal, tab_rows) - 1 < 65,536.
+int fasim_window_v1(const void* codes, int Wp, const void* tab, int tab_rows,
+                    const void* offs, const void* mreals, const void* terms,
+                    const void* rlens, const void* order, const void* n_first,
+                    int rows, int m, void* out, void* stream) {
+  if (rows <= 0) return 0;
+  if (order == nullptr || n_first == nullptr || tab_rows <= m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_pairs<true>(codes, Wp, tab, tab_rows, offs, mreals, terms,
+                            rlens, order, n_first, rows, m, out, stream);
+}
 
 // codes uint8[rows, W] (W 128 or 256; subw 64 only with W 128: two
 // windows per row); qc int32[nq] query codes (-1 past m); offs / mreals

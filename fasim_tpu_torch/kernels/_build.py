@@ -52,6 +52,8 @@ SIGNATURES = {
                              _P],
     "fasim_window_gen": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                          _P],
+    "fasim_window_v1": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                        _P],
     "fasim_window_keys": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
 }
 

@@ -56,7 +56,7 @@ from .scan_codes import (CodesTable, apply_byte_break, make_qprops,
 from .window import (K3_MAX_M, WIDTHS, both_strands, gather_window_codes,
                      score_table, width_class, window_fwd, window_general,
                      window_qp)
-from .window_v1 import query_rows, v1_ends
+from .window_v1 import query_rows, window_v1
 
 SPEC_KEYS = ("seg_idx", "scan_idx", "base", "dirn", "rlens", "offs",
              "terms", "mreals")
@@ -375,9 +375,9 @@ class TorchScanEngine:
                 part["scan_idx"], part["base"], part["dirn"],
                 part["rlens"], width)
             if self.win_v1:
-                ends = v1_ends(codes, self._qcodes(rev), part["offs"],
-                               part["terms"], part["rlens"], part["mreals"],
-                               self.m)
+                ends = window_v1(codes, self._qcodes(rev), part["offs"],
+                                 part["terms"], part["rlens"],
+                                 part["mreals"], self.m, tab)
             elif uniform:
                 ends = window_fwd(codes, qp, tab, part["rlens"], self.m,
                                   self.m16)
@@ -400,19 +400,13 @@ class TorchScanEngine:
         """Window pass over prebuilt codes uint8[rows, W] (SSW alphabet;
         columns >= rlen are never read) with per-row offs / terms / rlens
         / mreals -> host int32[rows, 3] (contract of
-        XlaScanEngine.window_pass), through K4; under FASIM_WIN_V1=1
-        through K6, at W rounded up to 128 (tpu.py:551-574)."""
+        XlaScanEngine.window_pass), per width class through K4; under
+        FASIM_WIN_V1=1 through K6."""
         rows, W = codes.shape
         if rows == 0:
             return np.zeros((0, 3), np.int32)
         self._check_rows(np.asarray(mreals))
         meta = np.stack([offs, terms, rlens, mreals]).astype(np.int32)
-        if self.win_v1:
-            cp = np.full((rows, _round_up(W, 128)), 4, np.uint8)
-            cp[:, :W] = codes
-            o, t, r, mr = self._to_dev(meta, torch.int32)
-            return v1_ends(self._to_dev(cp, torch.uint8), self._qcodes(rev),
-                           o, t, r, mr, self.m).cpu().numpy()
         klass = width_class(rlens)
         qp = self._dev["qwin_rev" if rev else "qwin_fwd"]
         tab = self._dev["wtab_rev" if rev else "wtab_fwd"]
@@ -424,7 +418,12 @@ class TorchScanEngine:
             cp = np.full((len(sel), width), 4, np.uint8)
             take = min(W, width)
             cp[:, :take] = codes[sel, :take]
+            cp = self._to_dev(cp, torch.uint8)
             o, t, r, mr = self._to_dev(meta[:, sel], torch.int32)
-            out[sel] = window_general(self._to_dev(cp, torch.uint8), qp, o,
-                                      t, r, mr, self.m, tab).cpu().numpy()
+            if self.win_v1:
+                ends = window_v1(cp, self._qcodes(rev), o, t, r, mr, self.m,
+                                 tab)
+            else:
+                ends = window_general(cp, qp, o, t, r, mr, self.m, tab)
+            out[sel] = ends.cpu().numpy()
         return out

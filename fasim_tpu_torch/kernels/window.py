@@ -6,8 +6,9 @@ per-row offs, mreals, terms, dirn +-1) together with their ends
 reductions (_ends_from_lane_keys, _ends_from_stats).  K3 is
 csrc/window_fwd.cu and K4 csrc/window_gen.cu, both two windows per
 register in 16-bit cells (csrc/window_s16.cuh), K4 with each window swept
-from its own offset; their headers say what bounds them on the card and
-how the designs meet that.  Both keep query rows in 16 bits, so queries
+from its own offset (the pair sweep csrc/window_pairs.cuh, which K6
+shares); their headers say what bounds them on the card and how the
+designs meet that.  Both keep query rows in 16 bits, so queries
 longer than K3_MAX_M rows take K4's int32 kernel csrc/window.cu
 (`window_general32`), routed by shape.  All return the ends int32[rows,
 3] = (best, end_col, end_row) directly.  `window_pass_ref` is their plain

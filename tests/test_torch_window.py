@@ -556,14 +556,16 @@ def _max_relu(a: int, b: int) -> int:
     return _pack(*[max(_s16(a >> s), _s16(b >> s), 0) for s in (0, 16)])
 
 
-def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m):
-    """Bit-level model of window_gen.cu's pair of windows (A low, B high
+def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m, v1=False,
+                   with_columns=False):
+    """Bit-level model of window_pairs.cuh's pair of windows (A low, B high
     half), columns in order (the wavefront only reorders the cells):
     the sweep from the lower offset to the larger mreal with the other
     half on the zero-score code until its own offset, the s16x2 cell, the
-    row keys and the phantom max, each half's masked past its mreal, and
-    the cut and ends reductions.  -> [(best, end_col, end_row)] for A and
-    B."""
+    row keys and the phantom max (K4) or the row keys on the phantom rows
+    too (v1: K6), each half's masked past its mreal, and the cut and ends
+    reductions.  -> [(best, end_col, end_row)] for A and B, and with
+    with_columns each half's per-column [(column max, its row)] too."""
     M16, M4, TOP, MIN = 0xFFF0FFF0, 0xFFFCFFFC, 0xC000C000, 0x80008000
     W = codes.shape[1]
     s = [min(max(int(o), 0), m) for o in offs]
@@ -588,12 +590,12 @@ def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m):
             gl = g[k] = _addmax(hv, M16, MIN)
             mask = (0xFFFF if i < mreals[0] else 0) \
                 | (0xFFFF0000 if i < mreals[1] else 0)
-            if i < m:
+            if i < m or v1:
                 ka[k] = max(ka[k], _prmt(tk, hv & mask, 0x5410))
                 kb[k] = max(kb[k], _prmt(tk, hv & mask, 0x7610))
             else:
                 pm[k] = _max_relu(pm[k], hv & mask)
-    out = []
+    out, columns = [], []
     for h in range(2):
         cmax, crow = [], []
         for k in range(W):
@@ -602,6 +604,7 @@ def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m):
             cmax.append(max(rmax, pmax))
             crow.append(0xFFFF - (key & 0xFFFF) if rmax >= pmax
                         else window._BIG)
+        columns.append(list(zip(cmax, crow)))
         limit = min((c for c in range(W) if terms[h] >= 0
                      and c < rlens[h] and cmax[c] == terms[h]),
                     default=window._BIG)
@@ -613,7 +616,7 @@ def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m):
         best, ecol = key >> 8, 255 - (key & 255)
         out.append((best, ecol if best > 0 else -1,
                     erow if best > 0 else m - 1))
-    return out
+    return (out, columns) if with_columns else out
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

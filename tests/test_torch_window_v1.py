@@ -177,16 +177,14 @@ def test_window_pass_specs_v1_matches_xla_and_pallas(rev, monkeypatch):
 def _spy(monkeypatch):
     """Record the window wrappers the engine reaches."""
     calls = []
-    targets = [(engine_mod, "window_fwd"), (engine_mod, "window_general"),
-               (window_v1, "window_keys")]
-    for mod, name in targets:
-        real = getattr(mod, name)
+    for name in ("window_fwd", "window_general", "window_v1"):
+        real = getattr(engine_mod, name)
 
         def spy(*args, _name=name, _real=real):
             calls.append(_name)
             return _real(*args)
 
-        monkeypatch.setattr(mod, name, spy)
+        monkeypatch.setattr(engine_mod, name, spy)
     return calls
 
 
@@ -207,7 +205,7 @@ def _fwd_spec(rng, lens, n_scans, m16):
 @pytest.mark.parametrize("env,want_fwd,want_rev", [
     ({}, {"window_fwd"}, {"window_general"}),
     ({"FASIM_WIN_V3": "0"}, {"window_general"}, {"window_general"}),
-    ({"FASIM_WIN_V1": "1"}, {"window_keys"}, {"window_keys"}),
+    ({"FASIM_WIN_V1": "1"}, {"window_v1"}, {"window_v1"}),
 ])
 def test_window_switch_routing(env, want_fwd, want_rev, monkeypatch):
     """FASIM_WIN_V1=1 sends every window pass to K6, FASIM_WIN_V3=0 the
@@ -242,7 +240,7 @@ def test_window_switch_routing(env, want_fwd, want_rev, monkeypatch):
     port.window_pass(codes, np.zeros(2, np.int32), np.full(2, -1, np.int32),
                      np.full(2, 40, np.int32), np.full(2, m, np.int32),
                      rev=False)
-    assert set(calls) == ({"window_keys"} if env.get("FASIM_WIN_V1")
+    assert set(calls) == ({"window_v1"} if env.get("FASIM_WIN_V1")
                           else {"window_general"})
 
 
