@@ -13,8 +13,10 @@ Phases, each printing one line with its seconds:
   3. kernels — every kernel against its plain PyTorch version on the card,
      exact integer equality, on inputs made with numpy default_rng: K1
      scan_colmax and K7 scan_colmax16 (main-path batch, ragged,
-     byte-saturating GA-rich, impure with a U query, K1's strip edges at
-     m16 = 512, 528 and 1,040, a NEAT1-length query, a 50 kb segment; K7
+     byte-saturating GA-rich, impure with a U query, strip edges at
+     m16 = 512, 528 and 1,040, a NEAT1-length query, K7's gate edge
+     (GA repeats at m = N = 6,000, 5 * min(m16, N) = 30,000, where K7's
+     largest per-pair max must reach 25,000), a 50 kb segment; K7
      against K1's plain version on the last), all in both alphabets,
      the engine's K7/K1 routing under FASIM_SCAN16=1 (odd T, out of the
      int16 gate, the full-prefix rerun), the candidate packing against
@@ -57,11 +59,13 @@ Phases, each printing one line with its seconds:
      cells/s, the SASS count of its step loop a cell (sass_loop), the
      integer ops/s that loop executes, the count of its column block
      alone, its resident warps an SM and waves, then
-     K1's threshold pass and K1 at NEAT1 length on the full batch (kernel
-     only) with its int32 bound; K7 at K1's shape, K6 (window_v1 beside
-     K4's window_general, its long-query kernel window_keys, and the whole
-     v1 pass before and after window_v1) on K3's forward and K4's reverse
-     dispatch, and the ptxas registers of K4's and K6's pair kernels;
+     K1's threshold pass; K7 at K1's shape with the same counts (its
+     rows a lane, the SASS of its step loop a cell, its resident warps
+     and waves) and its threshold pass; K1 and K7 at NEAT1 length on
+     the full batch (kernel only) with their bound and the int32 floor;
+     K6 (window_v1 beside K4's window_general, its long-query kernel
+     window_keys, and the whole v1 pass before and after window_v1) on
+     K3's forward and K4's reverse dispatch, and the ptxas registers of K4's and K6's pair kernels;
      on K3's dispatch also the int32 layout K3 had
      before (window_general32 with the uniform specs), K4 on those specs,
      and the dispatch's rlen histogram; on K4's dispatch
@@ -107,17 +111,19 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA's data sheet)
 INT32_LANES = 64  # INT32 units per SM (Hopper)
 
 
-def ops_per_cell(kernel: str, m16: int) -> float:
+def ops_per_cell(kernel: str, m16: int, N: int = 0) -> float:
     """The least integer operations one DP cell needs on sm_90, each
-    counted at the INT32 rate (fewer than the kernels execute).
+    counted at the INT32 rate (fewer than the kernels execute); N is a
+    scan's segment columns.
 
     A scan's recurrence takes 7: the score 1 (one PRMT of a per-row byte
     table by the column's code gives the sign-extended score in either
     alphabet), H - 16 once for both gaps 1, E and F one __viaddmax each,
     H 2 (__viaddmax_relu of diag + s and E, then max with F), the column
     max 1.  Where every H fits in 16 bits the two-lane s16x2 forms do two
-    cells per operation: 3.5.  A scan's H lies in [0, 5 * m16], so the
-    scans take 3.5 only while 5 * m16 <= 32767.  A window's H is at most
+    cells per operation: 3.5.  A scan's local score is at most 5 a column
+    and 5 a row, 5 * min(m16, N) (the bound K7's gate reads), so the
+    scans take 3.5 while that is <= 32767.  A window's H is at most
     5 * min(m, 256) <= 1,280 at any query length, so the window kernels
     always take the s16x2 forms, and they need no separate column max:
     each column's (max, lowest row) is one max over a 32-bit key
@@ -126,7 +132,9 @@ def ops_per_cell(kernel: str, m16: int) -> float:
     at every query length."""
     if kernel.startswith("window"):
         return 6 / 2 + 2
-    return 7 / 2 if 5 * m16 <= 32767 else 7
+    if N <= 0:
+        raise ValueError(f"ops_per_cell({kernel!r}): a scan needs N")
+    return 7 / 2 if 5 * min(m16, N) <= 32767 else 7
 
 
 def ptxas_registers() -> dict:
@@ -157,14 +165,25 @@ NON_INTEGER = ("SHFL", "LDS", "LDG", "LDL", "LDC", "STG", "STS", "STL",
                "S2R", "S2UR")
 
 
-# the DPX cell's own opcodes (csrc/sw_colmax.cuh:CellI32Dpx::step)
-CELL_OPS = ("PRMT", "VIADDMNMX", "VIADDMNMX.RELU", "VIMNMX", "VIMNMX3",
-            "VIADD", "IMAD.MOV.U32")
+# the DPX cells' own opcodes (csrc/sw_colmax.cuh:CellI32DpxT::step,
+# CellS16x2T::step), with any modifier (.RELU, the 16-bit forms' lane
+# types)
+CELL_OPS = ("PRMT", "VIADDMNMX", "VIMNMX", "VIMNMX3", "VIADD", "IMAD.MOV")
 
 
 def _integer_op(op: str) -> bool:
     return not (op.split(".")[0] in NON_INTEGER or op.startswith("U")
                 or op.startswith("IMAD.MOV"))
+
+
+def _cell_op(op: str) -> bool:
+    return any(op == c or op.startswith(c + ".") for c in CELL_OPS)
+
+
+def _cell_relu(op: str) -> bool:
+    """The add-max-relu of diag + s and E, one a row's cell (or, in K7,
+    a row's two cells)."""
+    return op.split(".")[0] == "VIADDMNMX" and "RELU" in op.split(".")
 
 
 def sass_loop(kernel: str, text: str | None = None) -> dict:
@@ -176,11 +195,12 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
     the kernel's first SHFL.UP;
     in it, the column block is what a lane runs for a column in range: the
     instructions between the innermost forward BRA around every
-    VIADDMNMX.RELU of the loop (one a cell) and its target.  Returns the
-    loop's instruction count and integer operations (_integer_op), the
-    block's instruction count, cells, integer operations, register moves
-    and the cells' own instructions (CELL_OPS; the rest fetch the column),
-    and the block's count by opcode."""
+    VIADDMNMX.RELU of the loop (one a row, _cell_relu) and its target.
+    Returns the loop's instruction count and integer operations
+    (_integer_op), the block's instruction count, rows of cells ("cells"),
+    integer operations, register moves and the cells' own instructions
+    (CELL_OPS; the rest fetch the column), and the block's count by
+    opcode."""
     import collections
     import re
 
@@ -211,7 +231,7 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
                     if pred and t is not None and t <= shfl < a)
     ins = [(a, op, t) for a, op, t, _ in ins]
     loop = [(a, op, t) for a, op, t in ins if lo <= a <= hi]
-    relu = [a for a, op, _ in loop if op == "VIADDMNMX.RELU"]
+    relu = [a for a, op, _ in loop if _cell_relu(op)]
     _, b_lo, b_hi = min((t - a, a, t) for a, _, t in loop
                         if t is not None and a < relu[0] and t > relu[-1])
     block = collections.Counter(op for a, op, _ in loop if b_lo < a < b_hi
@@ -219,11 +239,11 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
     return {"loop": len(loop),
             "loop_integer": sum(_integer_op(op) for _, op, _ in loop),
             "block": sum(block.values()),
-            "cells": block["VIADDMNMX.RELU"],
+            "cells": sum(n for op, n in block.items() if _cell_relu(op)),
             "integer": sum(n for op, n in block.items() if _integer_op(op)),
             "moves": sum(n for op, n in block.items()
                          if op.startswith("IMAD.MOV")),
-            "cell_ops": sum(block[op] for op in CELL_OPS),
+            "cell_ops": sum(n for op, n in block.items() if _cell_op(op)),
             "opcodes": dict(block.most_common())}
 
 
@@ -427,7 +447,8 @@ class Smoke:
             cm_p, gm_p = scan_colmax_ref(*args)
             self.compare("scan_colmax", cm_k, cm_p, f"{name}/{alpha} colmax")
             self.compare("scan_colmax", gm_k, gm_p, f"{name}/{alpha} max")
-            cm_7, gm_7 = scan_colmax16(*args)
+            cm_7, gm_7 = scan_colmax16(*args[:5], d[f"stab16_{alpha}"],
+                                       *args[5:])
             if k7_plain:
                 cm_p, gm_p = scan_colmax16_ref(*args)
             self.compare("scan_colmax16", cm_7, cm_p,
@@ -435,6 +456,7 @@ class Smoke:
             self.compare("scan_colmax16", gm_7, gm_p, f"{name}/{alpha} max")
             if not thresh:
                 out = (gm_k, cm_k)
+                self.k7_max = int(gm_7.max())
         print(f"  K1, K7 {name}: S={len(seqs)} N={segs.shape[1]} "
               f"m={len(rna)} m16={eng.m16} T=48 max={int(out[0].max())} "
               "equal"
@@ -506,6 +528,15 @@ class Smoke:
         # 5 * min(22768, 5120) = 25,600: inside K7's gate, 45 strips
         self.k1_case("NEAT1-length query", self.dna(NEAT1_M),
                      [self.dna(5000) for _ in range(2)], 5120)
+        # the gate's edge, 5 * min(m16, N) = 30,000: GA repeats against GA
+        # repeats score 5 a column on the transforms that read GA as GA
+        # (rules.scan_list(0, 0)[25] and [31]), so H comes near 30,000
+        ga6 = np.frombuffer(b"GA" * 3000, np.uint8).copy()
+        self.k1_case("gate edge, GA repeats m = N = 6,000", ga6,
+                     [ga6, ga6[1:]], 6000)
+        require(self.k7_max >= 25000, f"gate edge: K7's largest per-pair "
+                f"max {self.k7_max} < 25,000")
+        print(f"  gate edge: K7's largest per-pair max {self.k7_max}")
         # -c 50000: the segment codes outgrow 48 KB of shared memory
         self.k1_case("wide segment", self.dna(100), [self.dna(50000)],
                      50048, k7_plain=False)
@@ -1375,12 +1406,13 @@ class Smoke:
         T = d["lut6_s"].shape[0]
         cells = S * T * N * eng.m16
         self.work["scan_colmax"] = (
-            ops_per_cell("scan_colmax", eng.m16) * cells,
+            ops_per_cell("scan_colmax", eng.m16, N) * cells,
             2 * S * N + S * T * N + 4 * S * T + 4 * T * 7 + 16 * eng.m16)
         print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
               f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
               f"{self.plain_ms['scan_colmax']:.3f} ms")
-        self.k1_rates(eng.m16, N, S * T, cells, self.ms["scan_colmax"])
+        self.scan_rates("K1", eng.m16, N, S * T, cells,
+                        self.ms["scan_colmax"])
         thr_args = (bases, bases_rev, d["lut6_t"], d["istr"],
                     d["qp2_thresh"], d["stab_thresh"], eng.m16, True)
         thr_ms = self.cuda_ms(lambda: scan_colmax(*thr_args, want_cm=False),
@@ -1389,61 +1421,77 @@ class Smoke:
               f" the same batch: kernel {thr_ms:.3f} ms ("
               f"{cells / thr_ms / 1e6:.1f} G cells/s; bound "
               f"{self.bound(*self.work['scan_colmax'])[0]:.3f} ms)")
-        self.k1_neat1(bases, bases_rev, S, T, N)
+        k7_args = (*args[:5], d["stab16_ssw"], *args[5:])
         self.ms["scan_colmax16"] = self.cuda_ms(
-            lambda: scan_colmax16(*args), 3)
+            lambda: scan_colmax16(*k7_args), 3)
         self.plain_ms["scan_colmax16"] = self.cuda_ms(
             lambda: scan_colmax16_ref(*args), 1, warm=False)
         self.work["scan_colmax16"] = self.work["scan_colmax"]
-        print(f"  K7 scan_colmax16, the same pass: kernel "
-              f"{self.ms['scan_colmax16']:.3f} ms, plain "
-              f"{self.plain_ms['scan_colmax16']:.3f} ms")
+        k7_ms = self.ms["scan_colmax16"]
+        print(f"  K7 scan_colmax16, the same pass: kernel {k7_ms:.3f} ms "
+              f"({k7_ms / self.ms['scan_colmax']:.3f}x K1's), plain "
+              f"{self.plain_ms['scan_colmax16']:.3f} ms; bound "
+              f"{self.bound(*self.work['scan_colmax16'])[0]:.3f} ms")
+        self.scan_rates("K7", eng.m16, N, S * T, cells, k7_ms)
+        thr7_args = (*thr_args[:5], d["stab16_thresh"], *thr_args[6:])
+        thr7_ms = self.cuda_ms(
+            lambda: scan_colmax16(*thr7_args, want_cm=False), 3)
+        print(f"  K7 scan_colmax16, threshold-alphabet pass (thresholds "
+              f"only), the same batch: kernel {thr7_ms:.3f} ms")
+        self.scan_neat1(bases, bases_rev, S, T, N)
         cm, gm = scan_colmax(*k1_args)
         pack_ms = self.cuda_ms(
             lambda: pack_candidates(gm, cm, lens_d, eng.PACK_K), 5)
         print(f"  pack_candidates (torch ops) on that batch: {pack_ms:.3f} ms")
 
-    def k1_rates(self, m16: int, N: int, pairs: int, cells: int,
-                 ms: float) -> None:
-        """K1's rates on a timed pass: G cells/s; the SASS count of the
-        step loop of the instantiation launched at m16 (sass_loop; one
-        iteration a step, a lane's `rows` cells), a cell and in integer
-        operations, and the integer ops/s the loop executes at that time;
-        the count of its column block alone (the cells' instructions and
-        the column's fetch); its resident warps an SM (the CUDA occupancy
-        calculator) with the waves a batch of `pairs` one-warp blocks
-        takes."""
+    def scan_rates(self, name: str, m16: int, N: int, pairs: int, cells: int,
+                   ms: float) -> None:
+        """K1's or K7's rates on a timed pass: G cells/s; the SASS count of
+        the step loop of the instantiation launched at m16 (sass_loop; one
+        iteration a step, a lane's `rows` rows of one cell, two in K7), a
+        cell and in integer operations, and the integer ops/s the loop
+        executes at that time; the count of its column block alone (the
+        cells' instructions and the column's fetch); its resident warps an
+        SM (the CUDA occupancy calculator) with the waves of the batch's
+        warps (`pairs` of them in K1, half as many in K7)."""
         from fasim_tpu_torch.kernels.scan import blocks_per_sm, kernel_rows
 
+        k7 = name == "K7"
         rows = kernel_rows(m16)
-        sass = sass_loop(f"scan_colmax_kernelILi{rows}E")
+        per = 2 * rows if k7 else rows  # cells a lane a step
+        sass = sass_loop(f"scan16_kernelILi{rows}E" if k7
+                         else f"scan_colmax_kernelILi{rows}E")
         sms = self.torch.cuda.get_device_properties(0).multi_processor_count
-        warps = blocks_per_sm(m16, N)
-        print(f"  K1 SASS at {rows} rows a lane: step loop {sass['loop']} "
-              f"instructions, {sass['loop'] / rows:.2f} a cell, of them "
-              f"{sass['loop_integer']} integer operations, "
-              f"{sass['loop_integer'] / rows:.2f} a cell; its column block "
-              f"{sass['block']} for {sass['cells']} cells, "
-              f"{sass['block'] / rows:.2f} a cell, "
-              f"{sass['integer'] / rows:.2f} integer and "
-              f"{sass['moves'] / rows:.2f} moves, the cells' own "
-              f"{sass['cell_ops'] / rows:.2f}; block by opcode "
+        warps = blocks_per_sm(m16, N, k7=k7)
+        launched = pairs // 2 if k7 else pairs
+        print(f"  {name} SASS at {rows} rows a lane: step loop "
+              f"{sass['loop']} instructions, {sass['loop'] / per:.2f} a "
+              f"cell, of them {sass['loop_integer']} integer operations, "
+              f"{sass['loop_integer'] / per:.2f} a cell; its column block "
+              f"{sass['block']} for {sass['cells']} rows' cells, "
+              f"{sass['block'] / per:.2f} a cell, "
+              f"{sass['integer'] / per:.2f} integer and "
+              f"{sass['moves'] / per:.2f} moves, the cells' own "
+              f"{sass['cell_ops'] / per:.2f}; block by opcode "
               + ", ".join(f"{k} {v}" for k, v in sass["opcodes"].items()))
-        loop_ops = cells * sass["loop_integer"] / rows / ms * 1e3
-        block_ops = cells * sass["integer"] / rows / ms * 1e3
-        print(f"  K1 rates: {cells / ms / 1e6:.1f} G cells/s, "
+        loop_ops = cells * sass["loop_integer"] / per / ms * 1e3
+        block_ops = cells * sass["integer"] / per / ms * 1e3
+        print(f"  {name} rates: {cells / ms / 1e6:.1f} G cells/s, "
               f"{loop_ops:.4g} integer ops/s in the step loop "
               f"({block_ops:.4g} in its column block; int32 rate "
-              f"{self.int32_ops:.4g}); {warps} resident warps an SM, {pairs}"
-              f" pairs = {pairs / (warps * sms):.3f} waves on {sms} SMs; "
-              f"int32-form floor (7 a cell) "
+              f"{self.int32_ops:.4g}); {warps} resident warps an SM, "
+              f"{launched} warps = {launched / (warps * sms):.3f} waves on "
+              f"{sms} SMs; int32-form floor (7 a cell) "
               f"{self.bound(7 * cells, 0)[0]:.3f} ms")
 
-    def k1_neat1(self, bases, bases_rev, S: int, T: int, N: int) -> None:
-        """K1 at NEAT1 length (m = 22,767, 45 strips) on the full
-        64-segment batch, ssw pass, kernel only (the plain version would
-        take minutes), against its int32 bound."""
-        from fasim_tpu_torch.kernels.scan import scan_colmax
+    def scan_neat1(self, bases, bases_rev, S: int, T: int, N: int) -> None:
+        """K1 and K7 at NEAT1 length (m = 22,767, 45 strips; inside K7's
+        gate, 5 * min(22,768, 5,120) = 25,600) on the full 64-segment
+        batch, ssw pass, kernel only (the plain versions would take
+        minutes; phase 3 holds both against them at this length), against
+        their bound, and K7's outputs against K1's."""
+        from fasim_tpu_torch.kernels.scan import (in_gate16, scan_colmax,
+                                                  scan_colmax16)
 
         eng = self.engine(self.dna(NEAT1_M))
         d = eng._dev
@@ -1451,13 +1499,26 @@ class Smoke:
                 d["stab_ssw"], eng.m16, False)
         ms = self.cuda_ms(lambda: scan_colmax(*args), 2)
         cells = S * T * N * eng.m16
-        bound_ms, term = self.bound(
-            ops_per_cell("scan_colmax", eng.m16) * cells, 0)
+        ops = ops_per_cell("scan_colmax", eng.m16, N)
+        bound_ms, term = self.bound(ops * cells, 0)
         print(f"  K1 scan_colmax at NEAT1 length, S={S} T={T} N={N} "
               f"m={NEAT1_M} (m16 {eng.m16}), ssw pass: kernel {ms:.3f} ms, "
-              f"bound {bound_ms:.3f} ms ({term}, int32 forms), "
+              f"bound {bound_ms:.3f} ms ({term}, {ops} a cell), int32-form "
+              f"floor (7 a cell) {self.bound(7 * cells, 0)[0]:.3f} ms, "
               f"{cells / ms / 1e6:.1f} G cells/s")
-        self.k1_rates(eng.m16, N, S * T, cells, ms)
+        self.scan_rates("K1", eng.m16, N, S * T, cells, ms)
+        require(in_gate16(T, eng.m16, N), "NEAT1 length: outside K7's gate")
+        args7 = (*args[:5], d["stab16_ssw"], *args[6:])
+        ms7 = self.cuda_ms(lambda: scan_colmax16(*args7), 2)
+        got, want = scan_colmax16(*args7), scan_colmax(*args)
+        self.torch.cuda.synchronize()
+        require(all(self.torch.equal(a, b) for a, b in zip(got, want)),
+                "K7 at NEAT1 length differs from K1")
+        print(f"  K7 scan_colmax16 at NEAT1 length, the same pass: kernel "
+              f"{ms7:.3f} ms ({ms7 / ms:.3f}x K1's), bound {bound_ms:.3f} "
+              f"ms, {cells / ms7 / 1e6:.1f} G cells/s; outputs equal to "
+              "K1's")
+        self.scan_rates("K7", eng.m16, N, S * T, cells, ms7)
 
     def k4_sweep(self, spec, parts, qp, tab, m: int, cells: int) -> None:
         """What K4's 16-bit kernel sweeps on a dispatch, from the wrapper's
@@ -1546,7 +1607,7 @@ class Smoke:
         self.plain_ms["scan_codes_colmax"] = plain
         cells = rows * N * eng.m16
         self.work["scan_codes_colmax"] = (
-            ops_per_cell("scan_codes_colmax", eng.m16) * cells,
+            ops_per_cell("scan_codes_colmax", eng.m16, N) * cells,
             rows * N + 4 * rows * N + 16 * eng.m16)
         bound_ms = self.bound(*self.work["scan_codes_colmax"])[0]
         print(f"  K5 scan_codes_colmax, per-segment shape S=1 T={rows} "
@@ -1571,7 +1632,7 @@ class Smoke:
         pplan = kernel_plan(64 * rows, eng.m16)
         cells = packed.numel() * eng.m16
         bound_ms = self.bound(
-            ops_per_cell("scan_codes_colmax", eng.m16) * cells, 0)[0]
+            ops_per_cell("scan_codes_colmax", eng.m16, 5120) * cells, 0)[0]
         print(f"  K5 scan_codes_colmax, packed batch S=64 T={rows} N=5120 "
               f"m={len(rna)}, ssw, plan {pplan}: kernel {ms:.3f} ms "
               f"({cells / ms / 1e6:.1f} G cell-updates/s; bound "
@@ -1640,12 +1701,13 @@ class Smoke:
         plan = kernel_plan(rows, eng.m16)
         ms = self.cuda_ms(lambda: scan_codes_colmax(*args), 2)
         cells = rows * N * eng.m16
-        bound_ms = self.bound(
-            ops_per_cell("scan_codes_colmax", eng.m16) * cells, 0)[0]
+        ops = ops_per_cell("scan_codes_colmax", eng.m16, N)
+        bound_ms = self.bound(ops * cells, 0)[0]
         print(f"  K5 scan_codes_colmax at NEAT1 length, per-segment rows "
               f"S=1 T={rows} N={N} m={NEAT1_M} (m16 {eng.m16}), ssw, plan "
-              f"{plan}: kernel {ms:.3f} ms, bound {bound_ms:.3f} ms (int32 "
-              "forms)")
+              f"{plan}: kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({ops} a cell), int32-form floor (7 a cell) "
+              f"{self.bound(7 * cells, 0)[0]:.3f} ms")
         self.k5_rates(plan, N, rows, ms)
         times = {p: self.cuda_ms(lambda p=p: scan_codes_colmax(
             *args, plan=p), 2) for p in self.K5_PLANS_NEAT1}

@@ -8,27 +8,32 @@
 // where the code is N (5); rows m..m16-1 are zero-profile (phantom rows,
 // q = -1, hi = lo = nv = 0) and count toward the column max.
 //
-// Layout: lane k owns a band of up to kMaxRows consecutive query rows and
-// the warp sweeps the columns as a diagonal wavefront (lane k works on
-// column step - k).  The H and F of the row above a band and the running
-// column max pass down the warp by shuffles, so the vertical gap is exact
-// at any length.  Queries taller than one strip of 32 bands run strip
-// after strip; a strip's bottom row (H, F, column max) goes to the next
-// strip, through a global scratch row or, in a pipelined block, through
-// shared memory to the next warp.  The bottom lane of the last strip owns
-// the finished column max.
+// Layout (sweep_columns_fixed): lane k owns a band of kRows consecutive
+// query rows, a compile-time count the caller dispatches on
+// (sweep_rows(m16) <= kMaxRows), and the warp sweeps the columns as a
+// diagonal wavefront (lane k works on column step - k).  The H and F of
+// the row above a band and the running column max pass down the warp by
+// shuffles, so the vertical gap is exact at any length.  Queries taller
+// than one strip of 32 bands run strip after strip; the rows the strips
+// hold beyond m16 sit above row 0 as zero-score rows, and a strip's bottom
+// row (H, F, column max) goes to the next strip 32 columns at a time,
+// through shared memory and a global scratch row or, in a pipelined block,
+// a ring in shared memory to the next warp.  The bottom lanes of the last
+// strip own the finished column maxima, 32 columns at a time.
 //
-// The cell arithmetic is a policy:
-//   * CellI32Dpx (K1, K5): one int32 cell per register on Hopper's DPX
-//     forms, 7 operations a cell in either alphabet.  A row is one of at
+// The cell arithmetic is a policy, three cells in all, each keeping G = H -
+// 16 (also in the hand-offs and the scratch row) against a table of scores
+// + 16, so that a cell costs 7 operations on Hopper's DPX forms:
+//   * CellI32Dpx (K1): one int32 cell per register.  A row is one of at
 //     most 8 score classes; the column's code picks an 8-byte table of the
 //     classes' scores + 16 from shared memory once per column, and each
-//     row's prmt selector picks its class's byte.  The cell keeps G = H -
-//     16, also in the hand-offs and the scratch row.  Both fix the rows per
-//     lane at compile time (sweep_columns_fixed), with zero-score rows
-//     above row 0; K5 also runs a code row's strips at once, one warp each
-//     (a pipelined block).
-//   * CellS16x2 (K7): two int16 cells per register, s16x2 DPX forms.
+//     row's prmt selector picks its class's byte.
+//   * CellI32DpxT<true> (K5): the same cell with the short chain of
+//     dependent operations down a lane's rows; K5 also runs a code row's
+//     strips at once, one warp each (a pipelined block).
+//   * CellS16x2T<true> (K7): two int16 cells per register on the s16x2
+//     forms, with the short chain; a row keeps its own 8-byte table and the
+//     column's word is the prmt selector of its two codes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,12 +50,6 @@ constexpr int kMaxRows = 16;  // query rows per lane in one strip
 constexpr int kMaxWarps = 16;
 constexpr int kNeg = -(1 << 30);
 constexpr unsigned kFull = 0xffffffffu;
-
-// One query row's scoring: s = code == q ? hi : lo (nv: the threshold
-// alphabet's score of a reference N).
-struct QueryRow {
-  int q, hi, lo, nv;
-};
 
 // int32 cells on Hopper's DPX forms.  A query row is one of at most 8 score
 // classes (class 0 scores 0 for every code: the phantom rows and the rows
@@ -132,66 +131,70 @@ struct CellI32DpxT {
 };
 using CellI32Dpx = CellI32DpxT<false>;
 
-// Two int16 cells per 32-bit register, row A in the low half and row B in
-// the high half, with Hopper's s16x2 DPX forms.  Exact while every H fits
-// in int16 (the caller's gate: H <= 5 * min(m16, N) <= 30000); E and F stay
-// >= -20 after the first row and the F sentinel above row 0 is -16384.
-//
-// A code is a prmt selector: the column's two engine codes (< 8), each
-// with a sign-replicating copy, so prmt of a row's 8-entry int8 score
-// table (lo, hi words) gives both halves' sign-extended scores in one op.
-// H - 16 is kept per row (h16) and handed down as `hu`, so each gap costs
-// one __viaddmax: 7 operations per two cells.
-template <bool kThresh>
-struct CellS16x2 {
+// Two int16 cells per 32-bit register (K7), on Hopper's s16x2 DPX forms:
+// the cells of two (segment, transform) pairs against the same query row,
+// the first pair's in the low half and the second's in the high half.  The
+// roles of CellI32DpxT's words swap: a query row keeps its own 8-byte table
+// (s + 16 for each engine code 0..7, scan.py:scan16_table) and the
+// column's word is the prmt selector of its two codes, each with a
+// sign-replicating copy, so one prmt scores both halves.  The rest is
+// CellI32DpxT's cell in G = H - 16 form, kShort its short F chain
+// included: 7 operations per two cells, with no conversion in the
+// hand-offs.  Exact while every H fits in int16: the caller's gate, H <= 5
+// * min(m16, N) <= 30000, keeps diag + s + 16 <= 30005; E and F stay >=
+// -20 after the first row and column, and the F sentinel kTop (-16384)
+// meets G >= -16 at the first row (a zero-score row above row 0 or row
+// 0), so it never decays far.
+template <bool kShort = false>
+struct CellS16x2T {
   using Word = unsigned;
-  using Code = uint16_t;
   struct Row {
-    unsigned h, h16, e, tlo, thi;
+    unsigned g, e, tlo, thi;
   };
   static constexpr unsigned kTop = 0xC000C000u;  // -16384 in both halves
+  static constexpr unsigned kH0 = 0xFFF0FFF0u;   // G of H = 0: -16
   static constexpr unsigned kMin = 0x80008000u;  // -32768: max(x, kMin) = x
   static constexpr unsigned kM4 = 0xFFFCFFFCu;   // -4
   static constexpr unsigned kM16 = 0xFFF0FFF0u;  // -16
   static constexpr unsigned kP16 = 0x00100010u;  // +16
 
-  static __host__ __device__ constexpr uint16_t selector(int ca, int cb) {
-    return static_cast<uint16_t>(ca | (ca | 8) << 4 | cb << 8 |
+  // codes ca (low half) and cb (high half), each < 8
+  static __host__ __device__ constexpr unsigned selector(int ca, int cb) {
+    return static_cast<unsigned>(ca | (ca | 8) << 4 | cb << 8 |
                                  (cb | 8) << 12);
   }
-  __device__ __forceinline__ static Row row(QueryRow qr) {
-    unsigned t[2] = {0, 0};
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      int sc = c == qr.q ? qr.hi : qr.lo;
-      if (kThresh && c == 5) sc = qr.nv;
-      t[c / 4] |= (static_cast<unsigned>(sc) & 0xffu) << (8 * (c % 4));
-    }
-    return Row{0, kM16, 0, t[0], t[1]};
+  // t: the row's table, codes 0..3 in t.x and 4..7 in t.y
+  __device__ __forceinline__ static Row row(uint2 t) {
+    return Row{kH0, 0, t.x, t.y};
   }
-  __device__ __forceinline__ static unsigned carry_in(unsigned h) {
-    return __viaddmax_s16x2(h, kM16, kMin);
+  // the table of a zero-score row: s + 16 = 16 for every code
+  __device__ __forceinline__ static uint2 zero_query() {
+    return make_uint2(0x10101010u, 0x10101010u);
   }
-  __device__ __forceinline__ static unsigned carry_out(unsigned hu) {
-    return __viaddmax_s16x2(hu, kP16, kMin);
+  __device__ __forceinline__ static unsigned carry_in(unsigned g) {
+    return kShort ? __viaddmax_s16x2(g, kP16, kMin) : g;
+  }
+  __device__ __forceinline__ static unsigned carry_out(unsigned gu,
+                                                       const Row& last) {
+    return kShort ? last.g : gu;
   }
 
-  // The cell of CellI32Dpx::step for two rows, with hu holding H(., j) - 16.
+  // CellI32DpxT::step for two cells, sel the column's selector.
   __device__ __forceinline__ static void step(Row& w, unsigned sel,
-                                              unsigned& diag, unsigned& hu,
+                                              unsigned& diag, unsigned& gu,
                                               unsigned& f, unsigned& cm) {
-    unsigned sc;
-    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(sc) : "r"(w.tlo), "r"(w.thi),
+    unsigned s;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(s) : "r"(w.tlo), "r"(w.thi),
         "r"(sel));
-    const unsigned ev = __viaddmax_s16x2(w.e, kM4, w.h16);
-    const unsigned tmp = __viaddmax_s16x2_relu(diag, sc, ev);
-    f = __viaddmax_s16x2(f, kM4, hu);
-    const unsigned hv = __vimax_s16x2_relu(tmp, f);
-    diag = w.h;
-    w.h = hv;
+    const unsigned ev = __viaddmax_s16x2(w.e, kM4, w.g);
+    const unsigned tmp = __viaddmax_s16x2_relu(diag, s, ev);
+    f = __viaddmax_s16x2(f, kM4, gu);
+    const unsigned hv =
+        kShort ? __viaddmax_s16x2(f, kM16, tmp) : __vimax_s16x2_relu(tmp, f);
+    diag = w.g;
+    w.g = __viaddmax_s16x2(hv, kM16, kMin);
     w.e = ev;
-    w.h16 = __viaddmax_s16x2(hv, kM16, kMin);
-    hu = w.h16;
+    gu = kShort ? tmp : w.g;
     cm = __vimax_s16x2_relu(cm, hv);
   }
 };
@@ -208,78 +211,6 @@ __host__ __device__ inline int sweep_rows(int m16, int max_rows = kMaxRows) {
   return (m16 + kWarp * nstrips - 1) / (kWarp * nstrips);
 }
 
-// codes: the row's N codes (shared memory, written before the call and
-// followed by a __syncwarp); load(row) -> QueryRow for rows < m16; bnd:
-// Word[3, N] scratch (read only with more than one strip); emit(j, cm)
-// runs on lane 31 for every column j in order.
-template <class Cell, class Load, class Emit>
-__device__ __forceinline__ void sweep_columns(const typename Cell::Code* codes,
-                                              int N, int m16,
-                                              typename Cell::Word* bnd,
-                                              Load load, Emit emit) {
-  using Word = typename Cell::Word;
-  const int lane = threadIdx.x % kWarp;
-  const int nstrips = sweep_strips(m16);
-  const int rpt = sweep_rows(m16);
-  Word* bh = bnd;  // used only with >1 strip
-  Word* bf = bh + N;
-  Word* bc = bf + N;
-  for (int strip = 0; strip < nstrips; ++strip) {
-    const int row0 = (strip * kWarp + lane) * rpt;
-    const int nr = max(0, min(rpt, m16 - row0));
-    typename Cell::Row w[kMaxRows];
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      w[r] = Cell::row(r < nr ? load(row0 + r) : QueryRow{-1, 0, 0, 0});
-    const bool first = strip == 0;
-    const bool last = strip == nstrips - 1;
-    Word up_prev = 0;  // H of the row above the band at the previous column
-    Word out_h = 0, out_f = Cell::kTop, out_c = 0;
-    for (int step = 0; step < N + kWarp - 1; ++step) {
-      Word in_h = __shfl_up_sync(kFull, out_h, 1);
-      Word in_f = __shfl_up_sync(kFull, out_f, 1);
-      Word in_c = __shfl_up_sync(kFull, out_c, 1);
-      const int j = step - lane;
-      if (j >= 0 && j < N) {
-        if (lane == 0) {
-          if (first) {
-            in_h = 0;
-            in_f = Cell::kTop;
-            in_c = 0;
-          } else {
-            in_h = bh[j];
-            in_f = bf[j];
-            in_c = bc[j];
-          }
-        }
-        const Word c = codes[j];
-        Word diag = up_prev;
-        up_prev = in_h;
-        Word hu = Cell::carry_in(in_h), f = in_f, cm = in_c;
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < nr) Cell::step(w[r], c, diag, hu, f, cm);
-        }
-        out_h = Cell::carry_out(hu);
-        out_f = f;
-        out_c = cm;
-        if (lane == kWarp - 1) {
-          if (last) {
-            emit(j, cm);
-          } else {
-            bh[j] = out_h;
-            bf[j] = f;
-            bc[j] = cm;
-          }
-        }
-      }
-      // orders the scratch-row writes of one strip before the next strip's
-      // reads (the same warp, other lanes)
-      __syncwarp();
-    }
-  }
-}
-
 // Warps w - 1 and w of a pipelined block meet on named barrier w (64
 // threads; it also orders their shared-memory accesses).
 __device__ __forceinline__ void ring_sync(int id) {
@@ -294,19 +225,19 @@ __device__ __forceinline__ void wait_count(const int* count, int target) {
   __threadfence_block();
 }
 
-// The sweep of K1 and K5: sweep_columns' wavefront with every lane stepping
+// The sweep of K1, K5 and K7: the wavefront with every lane stepping
 // exactly kRows rows (the caller dispatches on it), so the row loop is
 // straight code.  The strips hold sweep_strips(m16, kRows) * 32 * kRows
 // rows; those beyond m16 go above row 0 as rows of Cell::zero_query(), which
-// score 0: such a row keeps H = 0 under a top boundary of H = 0 (diag + 0,
-// E and F <= 0) and hands row 0 F = -16, which it gets from H(-1, j) = 0
-// anyway, so the DP and every column max are unchanged.
+// score 0: such a row keeps H = 0 under a top boundary of H = 0 (G =
+// Cell::kH0; diag + 0, E and F <= 0) and hands row 0 F = -16, which it gets
+// from H(-1, j) = 0 anyway, so the DP and every column max are unchanged.
 //
 // A strip's bottom row goes to the next strip in blocks of 32 columns, one
 // column a lane, so no step branches on the lane: lane 31 writes its H, F
 // and column max into a staging block in shared memory and lane 0 of the
 // next strip reads them from one.
-//   * One warp (kPipe false; K1, and K5 with many code rows) runs the
+//   * One warp (kPipe false; K1, K7, and K5 with many code rows) runs the
 //     strips one after another.  Every 32 columns the warp stores its
 //     outputs' block to the global scratch row; lane 0 reads the row above
 //     the strip from a staging block that the warp fills from the scratch

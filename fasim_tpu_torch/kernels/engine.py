@@ -20,7 +20,9 @@ Derived from qwin_fwd and qwin_rev whenever they are set, and kept on the
 device only: wtab_fwd and wtab_rev int8[mpw, 8], the per-row score tables
 (`score_table`) that K3 and K4 read.  Likewise from qp2_ssw and
 qp2_thresh: stab_ssw and stab_thresh, K1's score-class tables
-(`ScanTable`s of uint8[64 + mp2], from `scan_table`); and from
+(`ScanTable`s of uint8[64 + mp2], from `scan_table`), and stab16_ssw and
+stab16_thresh, K7's per-row tables (`Scan16Table`s of uint8[mp2, 8], from
+`scan16_table`); and from
 qprops_ssw and qprops_thresh: ctab_ssw and ctab_thresh, K5's
 (`CodesTable`s of uint8[64 + mp], from `scan_codes_table`).
 
@@ -48,9 +50,9 @@ from .. import rules
 from ..rules import SSW_ENC, THRESH_ENC
 
 from .pack import pack_candidates
-from .scan import (N_BASE, PURE, PURE_OR_PAD, ScanTable, decode_bases,
-                   make_lut6, make_qp2, reverse_prefix, scan_colmax,
-                   scan_colmax16, scan_table)
+from .scan import (N_BASE, PURE, PURE_OR_PAD, Scan16Table, ScanTable,
+                   decode_bases, make_lut6, make_qp2, reverse_prefix,
+                   scan16_table, scan_colmax, scan_colmax16, scan_table)
 from .scan_codes import (CodesTable, apply_byte_break, make_qprops,
                          scan_codes_colmax, scan_codes_table)
 from .window import (K3_MAX_M, WIDTHS, both_strands, gather_window_codes,
@@ -97,7 +99,8 @@ class TorchScanEngine:
         self.m16 = _round_up(self.m, 16)
         self.query_pure = bool(PURE[rna].all())
         self._host: dict[str, np.ndarray] = {}
-        self._dev: dict[str, torch.Tensor | ScanTable | CodesTable] = {}
+        self._dev: dict[str, torch.Tensor | ScanTable | Scan16Table
+                        | CodesTable] = {}
         self._set({"qp2_ssw": make_qp2(rna, SSW_ENC, "ssw"),
                    "qp2_thresh": make_qp2(rna, THRESH_ENC, "thresh"),
                    "qprops_ssw": make_qprops(rna, "ssw"),
@@ -119,8 +122,11 @@ class TorchScanEngine:
                     self._dev[key])
         for key in ("qp2_ssw", "qp2_thresh"):
             if key in tables:
+                thresh = key == "qp2_thresh"
                 self._dev[key.replace("qp2", "stab")] = scan_table(
-                    self._dev[key], key == "qp2_thresh")
+                    self._dev[key], thresh)
+                self._dev[key.replace("qp2", "stab16")] = scan16_table(
+                    self._dev[key], thresh)
         for alpha in ("ssw", "thresh"):
             if f"qprops_{alpha}" in tables:
                 self._dev[f"ctab_{alpha}"] = scan_codes_table(
@@ -247,8 +253,8 @@ class TorchScanEngine:
             args = (bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
                     d[f"qp2_{alpha}"])
             if k7:
-                return scan_colmax16(*args, self.m16, alpha == "thresh",
-                                     want_cm=want_cm)
+                return scan_colmax16(*args, d[f"stab16_{alpha}"], self.m16,
+                                     alpha == "thresh", want_cm=want_cm)
             return scan_colmax(*args, d[f"stab_{alpha}"], self.m16,
                                alpha == "thresh", want_cm=want_cm)
 

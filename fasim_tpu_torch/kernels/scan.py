@@ -9,10 +9,10 @@ alphabet; `scan_colmax_ref` is its plain PyTorch version, ported from
 kernels/xla.py:colmax_xla, and reads the query rows.  K7 replaces the
 int16 path of the same Pallas kernel (FASIM_SCAN16=1): the same outputs
 from a 16-bit DP, two pairs per 32-bit register, for batches inside the
-int16 gate (`in_gate16`).  Its kernel is csrc/scan16.cu and
-`scan_colmax16_ref` its plain version, in torch.int16.  `scan_colmax` /
-`scan_colmax16` take the plain version for CPU tensors and launch the
-kernel for CUDA tensors.
+int16 gate (`in_gate16`).  Its kernel is csrc/scan16.cu, which reads the
+query through `scan16_table`, and `scan_colmax16_ref` its plain version,
+in torch.int16.  `scan_colmax` / `scan_colmax16` take the plain version
+for CPU tensors and launch the kernel for CUDA tensors.
 
 Tables kept in the JAX package's shapes, so an engine's state compares
 literally with a `TpuScanEngine`'s:
@@ -23,10 +23,15 @@ literally with a `TpuScanEngine`'s:
   * qp2 int32[5, mp2]: query rows q, hi, lo, nval (+ the TPU kernel's
     fbias row, unused here) per query position (`make_qp2`).
 
-K1's own table, derived from qp2 (`scan_table`), a `ScanTable`: its bytes
-uint8[64 + mp2] and the alphabet they score.  The query rows fall into at
-most SCAN_CLASSES score classes; bytes 0..63 hold s + TABLE_BIAS at
-8 * code + class, the bytes after them each row's class.
+The kernels' own tables, derived from qp2, each with the alphabet it
+scores:
+
+  * K1's `scan_table`, a `ScanTable` of bytes uint8[64 + mp2]: the query
+    rows fall into at most SCAN_CLASSES score classes; bytes 0..63 hold
+    s + TABLE_BIAS at 8 * code + class, the bytes after them each row's
+    class;
+  * K7's `scan16_table`, a `Scan16Table` of bytes uint8[mp2, 8]: each
+    query row's s + TABLE_BIAS for the engine codes 0..7.
 """
 
 from __future__ import annotations
@@ -109,6 +114,11 @@ class ScanTable(NamedTuple):
     thresh_alphabet: bool
 
 
+def _check_byte(s: torch.Tensor, name: str) -> None:
+    if int(s.min()) < -128 - TABLE_BIAS or int(s.max()) > 127 - TABLE_BIAS:
+        raise ValueError(f"{name}: a score does not fit the table's byte")
+
+
 def class_table(s: torch.Tensor, name: str) -> torch.Tensor:
     """The score-class table uint8[64 + rows] of query rows whose scores
     of the codes 0..7 are s int[rows, 8] (K1's and K5's layout, read by
@@ -118,8 +128,7 @@ def class_table(s: torch.Tensor, name: str) -> torch.Tensor:
     TABLE_BIAS (unused classes score 0), byte 64 + r row r's class.
     ValueError (naming `name`) when the rows have more than SCAN_CLASSES
     classes or a score outside [-144, 111]."""
-    if int(s.min()) < -128 - TABLE_BIAS or int(s.max()) > 127 - TABLE_BIAS:
-        raise ValueError(f"{name}: a score does not fit the table's byte")
+    _check_byte(s, name)
     rows = torch.cat([torch.zeros_like(s[:1]), s])
     uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
     n = uniq.shape[0]
@@ -138,17 +147,44 @@ def class_table(s: torch.Tensor, name: str) -> torch.Tensor:
         torch.uint8).contiguous()
 
 
+def _row_scores(qp: torch.Tensor, thresh_alphabet: bool) -> torch.Tensor:
+    """int32[mp2, 8]: each query row's score of the engine codes 0..7, as
+    scan_colmax_ref reads it from qp2 int32[>=4, mp2]."""
+    c = torch.arange(8, dtype=torch.int32, device=qp.device)[None, :]
+    s = torch.where(c == qp[0][:, None], qp[1][:, None], qp[2][:, None])
+    if thresh_alphabet:
+        s = torch.where(c == 5, qp[3][:, None], s)
+    return s
+
+
 def scan_table(qp: torch.Tensor, thresh_alphabet: bool) -> ScanTable:
     """K1's table, uint8[64 + mp2] (`class_table`), from the query rows
     qp2 int32[>=4, mp2] of one alphabet.  ValueError when the rows have
     more than SCAN_CLASSES classes (make_qp2 builds at most 6) or a score
     outside [-144, 111]."""
-    # each row's score of the codes 0..7, as scan_colmax_ref reads it
-    c = torch.arange(8, dtype=torch.int32, device=qp.device)[None, :]
-    s = torch.where(c == qp[0][:, None], qp[1][:, None], qp[2][:, None])
-    if thresh_alphabet:
-        s = torch.where(c == 5, qp[3][:, None], s)
-    return ScanTable(class_table(s, "scan_table"), thresh_alphabet)
+    return ScanTable(class_table(_row_scores(qp, thresh_alphabet),
+                                 "scan_table"), thresh_alphabet)
+
+
+class Scan16Table(NamedTuple):
+    """K7's query table (`scan16_table`): the bytes the kernel reads and
+    the alphabet whose scores they hold, which `scan_colmax16` checks
+    against its own `thresh_alphabet`."""
+    data: torch.Tensor
+    thresh_alphabet: bool
+
+
+def scan16_table(qp: torch.Tensor, thresh_alphabet: bool) -> Scan16Table:
+    """K7's table, uint8[mp2, 8], from the query rows qp2 int32[>=4, mp2]
+    of one alphabet: byte (r, code) is row r's score of the engine code
+    plus TABLE_BIAS, the byte that sw_colmax.cuh:CellS16x2T's prmt picks
+    and sign-extends (the threshold alphabet's code 5 scores nval; the
+    phantom rows past the query score 0, so their bytes are all 16).
+    ValueError for a score outside [-144, 111]."""
+    s = _row_scores(qp, thresh_alphabet)
+    _check_byte(s, "scan16_table")
+    return Scan16Table((s + TABLE_BIAS).to(torch.uint8).contiguous(),
+                       thresh_alphabet)
 
 
 def reverse_prefix(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -297,10 +333,9 @@ def _check_inputs(name: str, bases, bases_rev, lut6, istr, qp, m16: int):
 
 
 def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
-            lut6, istr, query: tuple, m16: int, want_cm: bool, *flags):
-    """Launch `entry` on checked CUDA inputs, its query arguments `query`
-    (K1: the table; K7: the qp rows and their stride) and trailing int
-    `flags`, and count the launch on `wrapper`: (colmax or None, per-pair
+            lut6, istr, tab: torch.Tensor, m16: int, want_cm: bool):
+    """Launch `entry` on checked CUDA inputs and the kernel's table bytes
+    `tab`, and count the launch on `wrapper`: (colmax or None, per-pair
     max)."""
     S, N = bases.shape
     T = lut6.shape[0]
@@ -316,9 +351,8 @@ def _launch(wrapper, entry: str, pairs_per_warp: int, bases, bases_rev,
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             bases.data_ptr(), bases_rev.data_ptr(), lut6.data_ptr(),
-            lut6.stride(0), istr.data_ptr(), istr.stride(0), *query,
-            S, T, N, m16, *flags,
-            None if bnd is None else bnd.data_ptr(),
+            lut6.stride(0), istr.data_ptr(), istr.stride(0), tab.data_ptr(),
+            S, T, N, m16, None if bnd is None else bnd.data_ptr(),
             None if cm is None else cm.data_ptr(), gm.data_ptr(),
             _build.stream_of(bases))
     _build.check(err, entry)
@@ -355,38 +389,56 @@ def scan_colmax(bases: torch.Tensor, bases_rev: torch.Tensor,
         raise ValueError("scan_colmax: tab must be scan_table's contiguous "
                          f"uint8 bytes on {bases.device}")
     return _launch(scan_colmax, "fasim_scan_colmax", 1, bases, bases_rev,
-                   lut6, istr, (data.data_ptr(),), m16, want_cm)
+                   lut6, istr, data, m16, want_cm)
 
 
 def scan_colmax16(bases: torch.Tensor, bases_rev: torch.Tensor,
                   lut6: torch.Tensor, istr: torch.Tensor, qp: torch.Tensor,
-                  m16: int, thresh_alphabet: bool, want_cm: bool = True):
+                  tab: Scan16Table, m16: int, thresh_alphabet: bool,
+                  want_cm: bool = True):
     """K7: scan_colmax's outputs from the 16-bit DP, for a batch inside
-    `in_gate16` (else ValueError).  CPU tensors take `scan_colmax16_ref`;
-    CUDA tensors launch the kernel (counted in `scan_colmax16.launches`);
-    anything else raises."""
+    `in_gate16` (else ValueError).  `tab` is `scan16_table(qp,
+    thresh_alphabet)`, which the kernel reads in place of qp (lut6's
+    engine codes must be < 8); a table of the other alphabet raises
+    ValueError on every device.
+
+    CPU tensors take `scan_colmax16_ref`; CUDA tensors launch the kernel
+    (counted in `scan_colmax16.launches`); anything else raises."""
+    if not isinstance(tab, Scan16Table) \
+            or tab.thresh_alphabet != thresh_alphabet:
+        raise ValueError("scan_colmax16: tab must be the Scan16Table of the "
+                         f"{'threshold' if thresh_alphabet else 'ssw'} "
+                         "alphabet")
     if bases.device.type == "cpu":
         cm, gm = scan_colmax16_ref(bases, bases_rev, lut6, istr, qp, m16,
                                    thresh_alphabet)
         return (cm if want_cm else None), gm
     _check_inputs("scan_colmax16", bases, bases_rev, lut6, istr, qp, m16)
     _check_gate16(lut6.shape[0], m16, bases.shape[1])
+    data = tab.data
+    if (data.device != bases.device or data.dtype != torch.uint8
+            or not data.is_contiguous() or data.dim() != 2
+            or data.shape[1] != 8 or data.shape[0] < m16
+            or data.data_ptr() % 8 != 0):
+        raise ValueError("scan_colmax16: tab must be scan16_table's "
+                         f"contiguous uint8 rows on {bases.device}")
     return _launch(scan_colmax16, "fasim_scan_colmax16", 2, bases,
-                   bases_rev, lut6, istr, (qp.data_ptr(), qp.stride(0)),
-                   m16, want_cm, int(thresh_alphabet))
+                   bases_rev, lut6, istr, data, m16, want_cm)
 
 
 def kernel_rows(m16: int) -> int:
-    """Rows a lane of the K1 kernel launched at query length m16: its
-    template argument, sw_colmax.cuh:sweep_rows (needs the card)."""
+    """Rows a lane of the K1 and K7 kernels launched at query length m16:
+    their template argument, sw_colmax.cuh:sweep_rows (needs the card)."""
     return _build.lib().fasim_scan_rows(m16)
 
 
-def blocks_per_sm(m16: int, N: int) -> int:
-    """K1's resident one-warp blocks an SM at query length m16 and N
-    segment columns, from the CUDA occupancy calculator (needs the card)."""
-    n = _build.lib().fasim_scan_blocks_per_sm(m16, N)
-    _build.check(-min(n, 0), "fasim_scan_blocks_per_sm")
+def blocks_per_sm(m16: int, N: int, k7: bool = False) -> int:
+    """K1's (K7's with k7) resident one-warp blocks an SM at query length
+    m16 and N segment columns, from the CUDA occupancy calculator (needs
+    the card)."""
+    entry = "fasim_scan16_blocks_per_sm" if k7 else "fasim_scan_blocks_per_sm"
+    n = getattr(_build.lib(), entry)(m16, N)
+    _build.check(-min(n, 0), entry)
     return n
 
 

@@ -1,7 +1,7 @@
-"""K1 and K5 (the port's scan_colmax and scan_codes_colmax kernels) of two
-trees on one card, alternating.
+"""K1, K5 and K7 (the port's scan_colmax, scan_codes_colmax and
+scan_colmax16 kernels) of two trees on one card, alternating.
 
-    python3 scripts/torch_k1_ab.py --parent DIR [--min-blocks N]
+    python3 scripts/torch_k1_ab.py --parent DIR [--min-blocks N] [--k7-cell]
 
 DIR holds another checkout of the repo, e.g. the parent commit unpacked
 with `git archive` into build/.  Each round runs in a process of its own,
@@ -13,13 +13,17 @@ threshold-alphabet pass of that batch (thresholds only) and its ssw pass
 at NEAT1 length (m=22,767); K5's ssw and threshold passes at the
 per-segment shape (48 code rows x 5,000, m=1,582), its ssw pass on a
 packed batch (64 x 48 x 5,120) and on the per-segment rows at NEAT1
-length -- and the ptxas registers of the tree's scan kernels.  The data
+length; K7's ssw and threshold passes of K1's MEG3 batch and its ssw pass
+at NEAT1 length -- and the ptxas registers of the tree's scan kernels.  The data
 come from one seed, so every round sees the same inputs; the script fails
 unless every round's outputs are equal.
 
 --min-blocks N also builds a copy of this tree whose K1 has a launch bound
 of N one-warp blocks an SM in place of its own (csrc/scan.cu kMinBlocks)
 and times it against this tree in the order this, copy, copy, this.
+--k7-cell does the same with a copy whose K7 takes the other form of its
+16-bit cell (csrc/scan16.cu kShortChain: the short or the long chain of
+dependent operations down a lane's rows).
 
 Needs one CUDA card and nvcc; prints a summary line per tree last.
 """
@@ -50,8 +54,8 @@ def _registers(build_log: str) -> dict[str, int]:
             entry = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
         if found and entry:
-            name = re.search(r"(scan_(?:colmax|codes)_kernelI\w+?E)E",
-                             entry)
+            name = re.search(
+                r"(scan(?:_colmax|_codes|16)_kernelI\w+?E)E", entry)
             if name:
                 regs[name.group(1)] = int(found.group(1))
             entry = None
@@ -69,7 +73,8 @@ def worker(tree: str, name: str) -> dict:
     from fasim_tpu_torch import rules
     from fasim_tpu_torch.kernels import _build
     from fasim_tpu_torch.kernels.engine import TorchScanEngine
-    from fasim_tpu_torch.kernels.scan import decode_bases, scan_colmax
+    from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
+                                              scan_colmax16)
     from fasim_tpu_torch.kernels.scan_codes import scan_codes_colmax
 
     assert _build.__file__.startswith(os.path.abspath(tree)), _build.__file__
@@ -121,6 +126,27 @@ def worker(tree: str, name: str) -> dict:
         cm, gm = run()
         out["sums"][label] = [int(gm.sum()), int(gm.max()),
                               None if cm is None else int(cm.sum())]
+    k7_tab = "tab" in inspect.signature(scan_colmax16).parameters
+    for label, m, alpha, want_cm, reps in (
+            ("k7_ssw", MEG3_M, "ssw", True, 5),
+            ("k7_thresh", MEG3_M, "thresh", False, 5),
+            ("k7_neat1", NEAT1_M, "ssw", True, 2)):
+        eng = TorchScanEngine(dna(m), device=dev)
+        eng.setup_scans(rules.scan_list(0, 0))
+        d = eng._dev
+        args = [bases, bases_rev, d[f"lut6_{alpha[0]}"], d["istr"],
+                d[f"qp2_{alpha}"]]
+        if k7_tab:
+            args.append(d[f"stab16_{alpha}"])
+        args += [eng.m16, alpha == "thresh"]
+
+        def run7():
+            return scan_colmax16(*args, want_cm=want_cm)
+
+        out["ms"][label] = ms(run7, reps)
+        cm, gm = run7()
+        out["sums"][label] = [int(gm.sum()), int(gm.max()),
+                              None if cm is None else int(cm.sum())]
     k5_tab = "tab" in inspect.signature(scan_codes_colmax).parameters
     for label, m, alpha, shape, reps in (
             ("k5_ssw", MEG3_M, "ssw", (1, 48, SEG_LEN), 5),
@@ -147,27 +173,49 @@ def worker(tree: str, name: str) -> dict:
     return out
 
 
-def min_blocks_copy(n: int) -> str:
-    """A copy of this tree's package under build/ with K1's launch bound
-    set to n blocks an SM."""
-    dst = os.path.join(ROOT, "build", f"k1_min_blocks_{n}")
+def edited_copy(name: str, source: str, pattern: str, repl) -> str:
+    """A copy of this tree's package under build/`name` with one match of
+    `pattern` in csrc/`source` replaced by `repl`."""
+    dst = os.path.join(ROOT, "build", name)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "fasim_tpu_torch"),
                     os.path.join(dst, "fasim_tpu_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    src = os.path.join(dst, "fasim_tpu_torch", "csrc", "scan.cu")
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    src = os.path.join(dst, "fasim_tpu_torch", "csrc", source)
     text = open(src).read()
-    text, hits = re.subn(r"constexpr int kMinBlocks = \d+;",
-                         f"constexpr int kMinBlocks = {n};", text)
-    assert hits == 1, "csrc/scan.cu: no kMinBlocks constant"
+    text, hits = re.subn(pattern, repl, text)
+    assert hits == 1, f"csrc/{source}: no match for {pattern}"
     open(src, "w").write(text)
     return dst
+
+
+def min_blocks_copy(n: int) -> str:
+    """A copy with K1's launch bound set to n blocks an SM."""
+    return edited_copy(f"k1_min_blocks_{n}", "scan.cu",
+                       r"constexpr int kMinBlocks = \d+;",
+                       f"constexpr int kMinBlocks = {n};")
+
+
+def k7_cell_copy() -> str:
+    """A copy whose K7 takes the other form of its cell; returns (its
+    directory, the form's name)."""
+    flip = {"true": "false", "false": "true"}
+    form = {}
+
+    def repl(found):
+        form["short"] = flip[found.group(1)] == "true"
+        return f"constexpr bool kShortChain = {flip[found.group(1)]};"
+
+    dst = edited_copy("k7_other_cell", "scan16.cu",
+                      r"constexpr bool kShortChain = (true|false);", repl)
+    return dst, "k7_short_chain" if form["short"] else "k7_long_chain"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--min-blocks", type=int)
+    ap.add_argument("--k7-cell", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--name", help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -182,6 +230,10 @@ def main() -> int:
     if a.min_blocks:
         name = f"min_blocks_{a.min_blocks}"
         trees[name] = min_blocks_copy(a.min_blocks)
+        order += ["this", name, name, "this"]
+    if a.k7_cell:
+        path, name = k7_cell_copy()
+        trees[name] = path
         order += ["this", name, name, "this"]
     rounds = []
     for name in order:

@@ -138,18 +138,20 @@ def test_scan16_refuses_outside_gate():
     bases, bases_rev = scan.decode_bases(torch.from_numpy(batch),
                                          torch.from_numpy(lengths))
     d = port._dev
-    odd = (bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"], port.m16,
-           False)
-    for fn in (scan.scan_colmax16, scan.scan_colmax16_ref):
+    odd = (bases, bases_rev, d["lut6_s"], d["istr"], d["qp2_ssw"])
+    # the wrapper takes K7's table, the plain version does not
+    fns = ((scan.scan_colmax16, (d["stab16_ssw"],)),
+           (scan.scan_colmax16_ref, ()))
+    for fn, tab in fns:
         with pytest.raises(ValueError, match="int16 gate"):
-            fn(*odd)
+            fn(*odd, *tab, port.m16, False)
     assert scan.in_gate16(2, 6000, 6016) and not scan.in_gate16(2, 6016,
                                                                 6016)
     wide = torch.zeros(1, 6016, dtype=torch.uint8)
-    for fn in (scan.scan_colmax16, scan.scan_colmax16_ref):
+    for fn, tab in fns:
         with pytest.raises(ValueError, match="int16 gate"):
             fn(wide, wide, d["lut6_s"][:2], d["istr"][:2], d["qp2_ssw"],
-               6016, False)
+               *tab, 6016, False)
 
 
 @pytest.mark.parametrize("scan16,n_scans,m,n,impure,full_prefix,want", [
