@@ -76,10 +76,10 @@ Phases, each printing one line with its seconds:
      rows a lane, at the packed-batch shape and on the per-segment rows
      at NEAT1 length, with each launched instantiation's step-loop SASS,
      registers and resident warps an SM),
-     each kernel's bound: the larger of
-     the least integer operations its cells need (ops_per_cell) over the
-     card's int32 rate (SMs x 64 lanes x the max SM clock) and its bytes
-     over 3.35 TB/s, and every kernel's ptxas registers;
+     each kernel's bound: the larger of the least integer operations its
+     cells need (scan_ops_per_cell, WINDOW_OPS_PER_CELL) over the card's
+     int32 rate (SMs x 64 lanes x the max SM clock) and its bytes over
+     3.35 TB/s, and every kernel's ptxas registers;
   6. trace   — one more default meg3_full run under torch.profiler: the
      device time by kernel and copy, and their sum against the wall; it
      fails if the profiler records no device event.
@@ -101,6 +101,7 @@ import sys
 import tempfile
 import time
 import traceback
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(REPO, "oracle")
@@ -111,30 +112,45 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA's data sheet)
 INT32_LANES = 64  # INT32 units per SM (Hopper)
 
 
-def ops_per_cell(kernel: str, m16: int, N: int = 0) -> float:
-    """The least integer operations one DP cell needs on sm_90, each
-    counted at the INT32 rate (fewer than the kernels execute); N is a
-    scan's segment columns.
+def scan_ops_per_cell(m16: int, N: int) -> float:
+    """The least integer operations one DP cell of a scan (K1, K5, K7)
+    needs on sm_90 at query length m16 against N segment columns, each
+    counted at the INT32 rate (fewer than the kernels execute).
 
-    A scan's recurrence takes 7: the score 1 (one PRMT of a per-row byte
-    table by the column's code gives the sign-extended score in either
+    The recurrence takes 7: the score 1 (one PRMT of a per-row byte table
+    by the column's code gives the sign-extended score in either
     alphabet), H - 16 once for both gaps 1, E and F one __viaddmax each,
     H 2 (__viaddmax_relu of diag + s and E, then max with F), the column
     max 1.  Where every H fits in 16 bits the two-lane s16x2 forms do two
-    cells per operation: 3.5.  A scan's local score is at most 5 a column
-    and 5 a row, 5 * min(m16, N) (the bound K7's gate reads), so the
-    scans take 3.5 while that is <= 32767.  A window's H is at most
-    5 * min(m, 256) <= 1,280 at any query length, so the window kernels
-    always take the s16x2 forms, and they need no separate column max:
-    each column's (max, lowest row) is one max over a 32-bit key
-    (H << 16) | (0xFFFF - row) built by one PRMT, 2 a cell (on the
-    phantom rows m..m16-1 a packed max alone, fewer).  So 6 / 2 + 2 = 5
-    at every query length."""
-    if kernel.startswith("window"):
-        return 6 / 2 + 2
-    if N <= 0:
-        raise ValueError(f"ops_per_cell({kernel!r}): a scan needs N")
+    cells per operation: 3.5.  A local score is at most 5 a column and 5 a
+    row, 5 * min(m16, N) (the bound K7's gate reads), so a scan takes 3.5
+    while that is <= 32767."""
     return 7 / 2 if 5 * min(m16, N) <= 32767 else 7
+
+
+# The least integer operations one DP cell of a window kernel (K3, K4,
+# K6) needs on sm_90, counted as scan_ops_per_cell counts.  A window's H
+# is at most 5 * min(m, 256) <= 1,280 at any query length, so the window
+# kernels always take the s16x2 forms (6 / 2), and they need no separate
+# column max: each column's (max, lowest row) is one max over a 32-bit key
+# (H << 16) | (0xFFFF - row) built by one PRMT, 2 a cell (on the phantom
+# rows m..m16-1 a packed max alone, fewer).
+WINDOW_OPS_PER_CELL = 6 / 2 + 2
+
+
+class ScanKernel(NamedTuple):
+    """What Smoke.scan_rates reads of a scan kernel: its name in the
+    output, its entry's mangled-name prefix (the template argument, rows a
+    lane, follows), the (segment, transform) pairs a warp sweeps and the
+    kernels.scan function giving its resident blocks an SM."""
+    name: str
+    entry: str
+    pairs_a_warp: int
+    blocks: str
+
+
+K1_SCAN = ScanKernel("K1", "scan_colmax_kernel", 1, "blocks_per_sm")
+K7_SCAN = ScanKernel("K7", "scan16_kernel", 2, "scan16_blocks_per_sm")
 
 
 def ptxas_registers() -> dict:
@@ -1294,7 +1310,7 @@ class Smoke:
             cells = int((rl * (top - spec["offs"])).sum())
             rows = len(rl)
             code_bytes = sum(int(c.numel()) for _, c, _ in parts)
-            self.work[kernel] = (ops_per_cell(kernel, m16) * cells,
+            self.work[kernel] = (WINDOW_OPS_PER_CELL * cells,
                                  code_bytes + rows * (16 if rev else 4)
                                  + rows * 12 + 12 * m)
             widths = {W: int(c.shape[0]) for W, c, _ in parts}
@@ -1352,7 +1368,7 @@ class Smoke:
             k6["window_keys"]["plain"] += self.cuda_ms(
                 lambda: keys6(window_keys_ref), 1, warm=False)
             for name in k6:
-                k6[name]["ops"] += ops_per_cell(name, m16) * cells
+                k6[name]["ops"] += WINDOW_OPS_PER_CELL * cells
             k6["window_v1"]["bytes"] += code_bytes + rows * 28 + 8 * int(
                 qc.numel())
             k6["window_keys"]["bytes"] += sum(
@@ -1406,12 +1422,12 @@ class Smoke:
         T = d["lut6_s"].shape[0]
         cells = S * T * N * eng.m16
         self.work["scan_colmax"] = (
-            ops_per_cell("scan_colmax", eng.m16, N) * cells,
+            scan_ops_per_cell(eng.m16, N) * cells,
             2 * S * N + S * T * N + 4 * S * T + 4 * T * 7 + 16 * eng.m16)
         print(f"  K1 scan_colmax, ssw pass, S={S} T={T} N={N} m={len(rna)}: "
               f"kernel {self.ms['scan_colmax']:.3f} ms, plain "
               f"{self.plain_ms['scan_colmax']:.3f} ms")
-        self.scan_rates("K1", eng.m16, N, S * T, cells,
+        self.scan_rates(K1_SCAN, eng.m16, N, S * T, cells,
                         self.ms["scan_colmax"])
         thr_args = (bases, bases_rev, d["lut6_t"], d["istr"],
                     d["qp2_thresh"], d["stab_thresh"], eng.m16, True)
@@ -1432,7 +1448,7 @@ class Smoke:
               f"({k7_ms / self.ms['scan_colmax']:.3f}x K1's), plain "
               f"{self.plain_ms['scan_colmax16']:.3f} ms; bound "
               f"{self.bound(*self.work['scan_colmax16'])[0]:.3f} ms")
-        self.scan_rates("K7", eng.m16, N, S * T, cells, k7_ms)
+        self.scan_rates(K7_SCAN, eng.m16, N, S * T, cells, k7_ms)
         thr7_args = (*thr_args[:5], d["stab16_thresh"], *thr_args[6:])
         thr7_ms = self.cuda_ms(
             lambda: scan_colmax16(*thr7_args, want_cm=False), 3)
@@ -1444,26 +1460,25 @@ class Smoke:
             lambda: pack_candidates(gm, cm, lens_d, eng.PACK_K), 5)
         print(f"  pack_candidates (torch ops) on that batch: {pack_ms:.3f} ms")
 
-    def scan_rates(self, name: str, m16: int, N: int, pairs: int, cells: int,
-                   ms: float) -> None:
-        """K1's or K7's rates on a timed pass: G cells/s; the SASS count of
-        the step loop of the instantiation launched at m16 (sass_loop; one
-        iteration a step, a lane's `rows` rows of one cell, two in K7), a
-        cell and in integer operations, and the integer ops/s the loop
-        executes at that time; the count of its column block alone (the
-        cells' instructions and the column's fetch); its resident warps an
-        SM (the CUDA occupancy calculator) with the waves of the batch's
-        warps (`pairs` of them in K1, half as many in K7)."""
-        from fasim_tpu_torch.kernels.scan import blocks_per_sm, kernel_rows
+    def scan_rates(self, kern: ScanKernel, m16: int, N: int, pairs: int,
+                   cells: int, ms: float) -> None:
+        """A scan kernel's rates on a timed pass: G cells/s; the SASS count
+        of the step loop of the instantiation launched at m16 (sass_loop;
+        one iteration a step, a lane's `rows` rows of one cell a pair its
+        warp sweeps), a cell and in integer operations, and the integer
+        ops/s the loop executes at that time; the count of its column block
+        alone (the cells' instructions and the column's fetch); its
+        resident warps an SM (the CUDA occupancy calculator) with the waves
+        of the batch's warps (`pairs` / kern.pairs_a_warp)."""
+        from fasim_tpu_torch.kernels import scan
 
-        k7 = name == "K7"
-        rows = kernel_rows(m16)
-        per = 2 * rows if k7 else rows  # cells a lane a step
-        sass = sass_loop(f"scan16_kernelILi{rows}E" if k7
-                         else f"scan_colmax_kernelILi{rows}E")
+        name = kern.name
+        rows = scan.kernel_rows(m16)
+        per = kern.pairs_a_warp * rows  # cells a lane a step
+        sass = sass_loop(f"{kern.entry}ILi{rows}E")
         sms = self.torch.cuda.get_device_properties(0).multi_processor_count
-        warps = blocks_per_sm(m16, N, k7=k7)
-        launched = pairs // 2 if k7 else pairs
+        warps = getattr(scan, kern.blocks)(m16, N)
+        launched = pairs // kern.pairs_a_warp
         print(f"  {name} SASS at {rows} rows a lane: step loop "
               f"{sass['loop']} instructions, {sass['loop'] / per:.2f} a "
               f"cell, of them {sass['loop_integer']} integer operations, "
@@ -1499,14 +1514,14 @@ class Smoke:
                 d["stab_ssw"], eng.m16, False)
         ms = self.cuda_ms(lambda: scan_colmax(*args), 2)
         cells = S * T * N * eng.m16
-        ops = ops_per_cell("scan_colmax", eng.m16, N)
+        ops = scan_ops_per_cell(eng.m16, N)
         bound_ms, term = self.bound(ops * cells, 0)
         print(f"  K1 scan_colmax at NEAT1 length, S={S} T={T} N={N} "
               f"m={NEAT1_M} (m16 {eng.m16}), ssw pass: kernel {ms:.3f} ms, "
               f"bound {bound_ms:.3f} ms ({term}, {ops} a cell), int32-form "
               f"floor (7 a cell) {self.bound(7 * cells, 0)[0]:.3f} ms, "
               f"{cells / ms / 1e6:.1f} G cells/s")
-        self.scan_rates("K1", eng.m16, N, S * T, cells, ms)
+        self.scan_rates(K1_SCAN, eng.m16, N, S * T, cells, ms)
         require(in_gate16(T, eng.m16, N), "NEAT1 length: outside K7's gate")
         args7 = (*args[:5], d["stab16_ssw"], *args[6:])
         ms7 = self.cuda_ms(lambda: scan_colmax16(*args7), 2)
@@ -1518,7 +1533,7 @@ class Smoke:
               f"{ms7:.3f} ms ({ms7 / ms:.3f}x K1's), bound {bound_ms:.3f} "
               f"ms, {cells / ms7 / 1e6:.1f} G cells/s; outputs equal to "
               "K1's")
-        self.scan_rates("K7", eng.m16, N, S * T, cells, ms7)
+        self.scan_rates(K7_SCAN, eng.m16, N, S * T, cells, ms7)
 
     def k4_sweep(self, spec, parts, qp, tab, m: int, cells: int) -> None:
         """What K4's 16-bit kernel sweeps on a dispatch, from the wrapper's
@@ -1558,8 +1573,7 @@ class Smoke:
             args = (codes, qp, part["offs"], part["terms"], part["rlens"],
                     part["mreals"], m, tab)
             ms = self.cuda_ms(lambda: window_general(*args), 5)
-            bound_ms = self.bound(ops_per_cell("window_general", m) * need,
-                                  0)[0]
+            bound_ms = self.bound(WINDOW_OPS_PER_CELL * need, 0)[0]
             print(f"  K4 {W}-column class, {codes.shape[0]} rows: "
                   f"{ms:.3f} ms, bound {bound_ms:.3f} ms, cells swept "
                   f"{swept} against the bound's {need} "
@@ -1607,7 +1621,7 @@ class Smoke:
         self.plain_ms["scan_codes_colmax"] = plain
         cells = rows * N * eng.m16
         self.work["scan_codes_colmax"] = (
-            ops_per_cell("scan_codes_colmax", eng.m16, N) * cells,
+            scan_ops_per_cell(eng.m16, N) * cells,
             rows * N + 4 * rows * N + 16 * eng.m16)
         bound_ms = self.bound(*self.work["scan_codes_colmax"])[0]
         print(f"  K5 scan_codes_colmax, per-segment shape S=1 T={rows} "
@@ -1632,7 +1646,7 @@ class Smoke:
         pplan = kernel_plan(64 * rows, eng.m16)
         cells = packed.numel() * eng.m16
         bound_ms = self.bound(
-            ops_per_cell("scan_codes_colmax", eng.m16, 5120) * cells, 0)[0]
+            scan_ops_per_cell(eng.m16, 5120) * cells, 0)[0]
         print(f"  K5 scan_codes_colmax, packed batch S=64 T={rows} N=5120 "
               f"m={len(rna)}, ssw, plan {pplan}: kernel {ms:.3f} ms "
               f"({cells / ms / 1e6:.1f} G cell-updates/s; bound "
@@ -1701,7 +1715,7 @@ class Smoke:
         plan = kernel_plan(rows, eng.m16)
         ms = self.cuda_ms(lambda: scan_codes_colmax(*args), 2)
         cells = rows * N * eng.m16
-        ops = ops_per_cell("scan_codes_colmax", eng.m16, N)
+        ops = scan_ops_per_cell(eng.m16, N)
         bound_ms = self.bound(ops * cells, 0)[0]
         print(f"  K5 scan_codes_colmax at NEAT1 length, per-segment rows "
               f"S=1 T={rows} N={N} m={NEAT1_M} (m16 {eng.m16}), ssw, plan "

@@ -21,12 +21,11 @@
 // row of prmt selectors in shared memory (2 bytes a column), and each
 // query row keeps its 8-byte table of scores + 16 (scan.py:scan16_table,
 // built once per alphabet on the host side), so one prmt scores both
-// halves in either alphabet.  The cell takes the short F chain (one
-// dependent operation a row down a lane's rows, CellS16x2T<true>): a
-// 64-segment batch gives only 1,536 warps, half K1's, and on the main
-// path's shape (13 rows a lane) that form measured faster, by about 1%;
-// at 16 rows a lane the long one is about 2% faster (PERF.md has both
-// forms' times on an H100, from scripts/torch_k1_ab.py --k7-cell).  Every
+// halves in either alphabet.  Below 16 rows a lane the cell takes the
+// short F chain (one dependent operation a row down a lane's rows,
+// CellS16x2T<true>), at 16 the long one: on an H100 the short form was
+// about 1% faster at 13 rows a lane (the MEG3 pass) and the long one
+// about 2% faster at 16 (NEAT1 length; PERF.md §6).  Every
 // lane emits the columns j with j % 32 == lane, so the per-pair maximum is
 // a warp-wide reduction at the end.  Queries over 512 rows run in strips
 // through a global scratch row of packed words (3 * N words per warp).
@@ -48,7 +47,6 @@ using fasim::kWarp;
 // warps in one wave); ptxas may take up to 168 registers, and spills none
 // at 16 rows a lane
 constexpr int kMinBlocks = 12;
-constexpr bool kShortChain = true;  // CellS16x2T's short F chain
 
 template <int kRows>
 __global__ void __launch_bounds__(kWarp, kMinBlocks)
@@ -59,7 +57,7 @@ scan16_kernel(const uint8_t* __restrict__ bases,
               const uint2* __restrict__ tab, int T, int N, int m16,
               unsigned* __restrict__ bnd, uint8_t* __restrict__ cm_out,
               int32_t* __restrict__ gm_out) {
-  using Cell = fasim::CellS16x2T<kShortChain>;
+  using Cell = fasim::CellS16x2T<(kRows < kMaxRows)>;
   extern __shared__ uint16_t sel[];
   __shared__ int32_t lut[2][6];
   const int warp = blockIdx.x;  // s * (T / 2) + k: pairs (s, 2k), (s, 2k + 1)

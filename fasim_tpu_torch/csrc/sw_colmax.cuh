@@ -31,9 +31,9 @@
 //   * CellI32DpxT<true> (K5): the same cell with the short chain of
 //     dependent operations down a lane's rows; K5 also runs a code row's
 //     strips at once, one warp each (a pipelined block).
-//   * CellS16x2T<true> (K7): two int16 cells per register on the s16x2
-//     forms, with the short chain; a row keeps its own 8-byte table and the
-//     column's word is the prmt selector of its two codes.
+//   * CellS16x2T (K7): two int16 cells per register on the s16x2 forms,
+//     with the short chain below 16 rows a lane; a row keeps its own 8-byte
+//     table and the column's word is the prmt selector of its two codes.
 #pragma once
 
 #include <cuda_runtime.h>

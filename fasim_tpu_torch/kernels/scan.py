@@ -432,13 +432,20 @@ def kernel_rows(m16: int) -> int:
     return _build.lib().fasim_scan_rows(m16)
 
 
-def blocks_per_sm(m16: int, N: int, k7: bool = False) -> int:
-    """K1's (K7's with k7) resident one-warp blocks an SM at query length
-    m16 and N segment columns, from the CUDA occupancy calculator (needs
-    the card)."""
-    entry = "fasim_scan16_blocks_per_sm" if k7 else "fasim_scan_blocks_per_sm"
-    n = getattr(_build.lib(), entry)(m16, N)
-    _build.check(-min(n, 0), entry)
+def blocks_per_sm(m16: int, N: int) -> int:
+    """K1's resident one-warp blocks an SM at query length m16 and N
+    segment columns, from the CUDA occupancy calculator (needs the
+    card)."""
+    n = _build.lib().fasim_scan_blocks_per_sm(m16, N)
+    _build.check(-min(n, 0), "fasim_scan_blocks_per_sm")
+    return n
+
+
+def scan16_blocks_per_sm(m16: int, N: int) -> int:
+    """K7's resident one-warp blocks an SM, as blocks_per_sm (needs the
+    card)."""
+    n = _build.lib().fasim_scan16_blocks_per_sm(m16, N)
+    _build.check(-min(n, 0), "fasim_scan16_blocks_per_sm")
     return n
 
 

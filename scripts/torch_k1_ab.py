@@ -1,7 +1,7 @@
 """K1, K5 and K7 (the port's scan_colmax, scan_codes_colmax and
 scan_colmax16 kernels) of two trees on one card, alternating.
 
-    python3 scripts/torch_k1_ab.py --parent DIR [--min-blocks N] [--k7-cell]
+    python3 scripts/torch_k1_ab.py --parent DIR [--min-blocks N]
 
 DIR holds another checkout of the repo, e.g. the parent commit unpacked
 with `git archive` into build/.  Each round runs in a process of its own,
@@ -21,9 +21,6 @@ unless every round's outputs are equal.
 --min-blocks N also builds a copy of this tree whose K1 has a launch bound
 of N one-warp blocks an SM in place of its own (csrc/scan.cu kMinBlocks)
 and times it against this tree in the order this, copy, copy, this.
---k7-cell does the same with a copy whose K7 takes the other form of its
-16-bit cell (csrc/scan16.cu kShortChain: the short or the long chain of
-dependent operations down a lane's rows).
 
 Needs one CUDA card and nvcc; prints a summary line per tree last.
 """
@@ -173,49 +170,27 @@ def worker(tree: str, name: str) -> dict:
     return out
 
 
-def edited_copy(name: str, source: str, pattern: str, repl) -> str:
-    """A copy of this tree's package under build/`name` with one match of
-    `pattern` in csrc/`source` replaced by `repl`."""
-    dst = os.path.join(ROOT, "build", name)
+def min_blocks_copy(n: int) -> str:
+    """A copy of this tree's package under build/ with K1's launch bound
+    set to n blocks an SM."""
+    dst = os.path.join(ROOT, "build", f"k1_min_blocks_{n}")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "fasim_tpu_torch"),
                     os.path.join(dst, "fasim_tpu_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__", "build"))
-    src = os.path.join(dst, "fasim_tpu_torch", "csrc", source)
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(dst, "fasim_tpu_torch", "csrc", "scan.cu")
     text = open(src).read()
-    text, hits = re.subn(pattern, repl, text)
-    assert hits == 1, f"csrc/{source}: no match for {pattern}"
+    text, hits = re.subn(r"constexpr int kMinBlocks = \d+;",
+                         f"constexpr int kMinBlocks = {n};", text)
+    assert hits == 1, "csrc/scan.cu: no kMinBlocks constant"
     open(src, "w").write(text)
     return dst
-
-
-def min_blocks_copy(n: int) -> str:
-    """A copy with K1's launch bound set to n blocks an SM."""
-    return edited_copy(f"k1_min_blocks_{n}", "scan.cu",
-                       r"constexpr int kMinBlocks = \d+;",
-                       f"constexpr int kMinBlocks = {n};")
-
-
-def k7_cell_copy() -> str:
-    """A copy whose K7 takes the other form of its cell; returns (its
-    directory, the form's name)."""
-    flip = {"true": "false", "false": "true"}
-    form = {}
-
-    def repl(found):
-        form["short"] = flip[found.group(1)] == "true"
-        return f"constexpr bool kShortChain = {flip[found.group(1)]};"
-
-    dst = edited_copy("k7_other_cell", "scan16.cu",
-                      r"constexpr bool kShortChain = (true|false);", repl)
-    return dst, "k7_short_chain" if form["short"] else "k7_long_chain"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--min-blocks", type=int)
-    ap.add_argument("--k7-cell", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--name", help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -230,10 +205,6 @@ def main() -> int:
     if a.min_blocks:
         name = f"min_blocks_{a.min_blocks}"
         trees[name] = min_blocks_copy(a.min_blocks)
-        order += ["this", name, name, "this"]
-    if a.k7_cell:
-        path, name = k7_cell_copy()
-        trees[name] = path
         order += ["this", name, name, "this"]
     rounds = []
     for name in order:

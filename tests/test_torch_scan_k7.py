@@ -14,8 +14,9 @@ kTop (-16384), the balanced rows per lane of sw_colmax.cuh:sweep_rows, the
 zero-score rows the kernel adds above row 0, the lane hand-off (a shuffle
 up by one lane), the strip hand-off through the scratch row, the emit of
 column j on lane j % 32 and the warp-wide max reduction (a shuffle xor
-butterfly).  It runs both forms of the cell (the kernel ships one,
-scan16.cu's kShortChain).  Two mutants must fail it: the per-pair max
+butterfly).  It runs both forms of the cell; by default the one the
+kernel takes, the short F chain below 16 rows a lane and the long one at
+16 (scan16.cu).  Two mutants must fail it: the per-pair max
 taken from lane 31's columns only, and the selector's halves swapped.
 Every output is an integer: the tolerance is 0.
 """
@@ -97,11 +98,13 @@ def _vimax_relu(a, b):
     return np.maximum(np.maximum(a, b), I16(0))
 
 
-def _k7_model(codes, tab, m16, short=False, mutant=None):
+def _k7_model(codes, tab, m16, short=None, mutant=None):
     """The kernel's sweep for pair code rows int[S * T, N] (T even) and the
     table uint8[>= m16, 8]: (column maxima uint8[S * T, N], per-pair max
-    int32[S * T]).  mutant "lane31" takes the per-pair max from lane 31's
-    columns alone, "swap" swaps the selector's halves."""
+    int32[S * T]).  short picks the cell's form (None: the kernel's, the
+    short F chain below 16 rows a lane); mutant "lane31" takes the per-pair
+    max from lane 31's columns alone, "swap" swaps the selector's
+    halves."""
     rows_all, N = codes.shape
     P = rows_all // 2
     ca, cb = codes[0::2], codes[1::2]  # pair 2k low, 2k + 1 high
@@ -110,6 +113,8 @@ def _k7_model(codes, tab, m16, short=False, mutant=None):
     nstrips = -(-m16 // (WARP * MAX_ROWS))
     rpt = -(-m16 // (WARP * nstrips))
     pad = nstrips * WARP * rpt - m16
+    if short is None:
+        short = rpt < MAX_ROWS
     lanes = np.arange(WARP)
     zero = np.uint32(0x10101010)  # zero_query(): s + 16 = 16
     bh = np.zeros((P, N, 2), I16)
@@ -184,7 +189,7 @@ def _k7_model(codes, tab, m16, short=False, mutant=None):
     return cm.astype(np.uint8), gmax.reshape(rows_all).astype(np.int32)
 
 
-def _model_wrapper(short=False, mutant=None):
+def _model_wrapper(short=None, mutant=None):
     """scan_colmax16's signature on the model (CPU tensors)."""
     def run(bases, bases_rev, lut6, istr, qp, tab, m16, thresh_alphabet,
             want_cm=True):
@@ -290,12 +295,14 @@ def _inputs(rna, segs, lens, alpha):
 
 
 # one strip of 2 rows a lane (m16 = 64), one of 6 (GA repeats past 251),
-# two strips of 9 (m16 = 528, 48 zero rows above row 0) with a U query and
-# three of 11 (1,040)
+# one of 16 (m16 = 512, where the kernel takes the long form), two strips
+# of 9 (m16 = 528, 48 zero rows above row 0) with a U query and three of 11
+# (1,040)
 @pytest.mark.parametrize("short", [False, True], ids=["long", "short"])
 @pytest.mark.parametrize("thresh", [False, True])
 @pytest.mark.parametrize("m,query", [(61, b"ACGT"), (190, b"GA"),
-                                     (527, b"ACGTU"), (1033, b"ACGT")])
+                                     (509, b"ACGT"), (527, b"ACGTU"),
+                                     (1033, b"ACGT")])
 def test_k7_model_matches_ref(m, query, thresh, short):
     rng = np.random.default_rng(m + thresh)
     rna, segs, lens = _case(m, query, rng)
@@ -309,7 +316,8 @@ def test_k7_model_matches_ref(m, query, thresh, short):
 
 
 @pytest.mark.parametrize("m,query", [(61, b"ACGT"), (190, b"GA"),
-                                     (527, b"ACGTU"), (1033, b"ACGT")])
+                                     (509, b"ACGT"), (527, b"ACGTU"),
+                                     (1033, b"ACGT")])
 def test_k7_model_matches_pallas_int16(m, query, monkeypatch):
     """The port's engine with the model in K7's place equals the JAX
     package's int16 Pallas path in interpret mode on the same batch:
