@@ -17,7 +17,9 @@ Phases, each printing one line with its seconds:
      m16 = 512, 528 and 1,040, a NEAT1-length query, K7's gate edge
      (GA repeats at m = N = 6,000, 5 * min(m16, N) = 30,000, where K7's
      largest per-pair max must reach 25,000), a 50 kb segment; K7
-     against K1's plain version on the last), all in both alphabets,
+     against its own plain version on the main-path batch, the NEAT1-
+     length query and the gate edge, against K1's on the others), all in
+     both alphabets,
      the engine's K7/K1 routing under FASIM_SCAN16=1 (odd T, out of the
      int16 gate, the full-prefix rerun), the candidate packing against
      its numpy mirror, K3 window_fwd on every width class (rlens of 32
@@ -30,9 +32,10 @@ Phases, each printing one line with its seconds:
      uniform forward specs on K3 and reverse specs on window_general,
      one row past it both on window_general32), K6 window_v1 (ends) and
      its long-query kernel window_keys (keys, two 64-column windows per
-     row included) against their plain chain on the same cases as K4 and
-     on K3's width classes, and at K6's gate (largest mreal K6_MAX_MREAL
-     on window_v1, one row past it on window_keys), K5 scan_codes_colmax on its
+     row included) against their plain chain on the same cases as K4 (at
+     NEAT1 length the 64-column ones) and on K3's width classes, and at
+     K6's gate (largest mreal K6_MAX_MREAL on window_v1, one row past it
+     on window_keys, against K4's plain version), K5 scan_codes_colmax on its
      library's launch plan and at the plan's edges (one strip, strips =
      warps, strips > warps through the scratch row, one warp over several
      strips) with codes >= 8 in the rows, in both alphabets (the
@@ -44,17 +47,30 @@ Phases, each printing one line with its seconds:
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
      the kernels of its path launched and the kernels its switches turn
-     off not launched: h19_lg40, h19_default, h19F_trunc and h19_F (both
-     -F) through the port's CLI, h19_lg40 under FASIM_WIN_V3=0 (K4 for
+     off not launched: h19_lg40, h19_default and h19F_trunc (-F)
+     through the port's CLI, h19_lg40 under FASIM_WIN_V3=0 (K4 for
      the forward specs, no K3), h19_lg40 through the batched driver with
      TorchScanEngine(use_v2=False) (K5), meg3_sub16 through the
      per-segment path scan/pipeline.scan_file (K5), neat1 (NEAT1,
      22,767 nt), malat1 (MALAT1, 8,708 nt) and meg3_sub64 through the
-     CLI (K1, K3, K4), and meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records)
-     through the CLI, by default (K1, K3, K4) and under FASIM_SCAN16=1
-     FASIM_WIN_V1=1 (K7, K6's window_v1; no K1, K3 or K4); no run launches
-     the long-query kernels window_general32 and window_keys;
-  5. times   — each kernel and its plain version at main-path shapes
+     CLI (K1, K3, K4), meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records)
+     through the CLI under FASIM_SCAN16=1 FASIM_WIN_V1=1 (K7, K6's
+     window_v1; no K1, K3 or K4), then meg3_full (K1, K3, K4) and h19_F
+     (-F, K1) through the streaming
+     driver (--tpu-stream on, FASIM_SPILL_DIR a fresh directory that must
+     be empty after the run); each CLI run must go through the driver its
+     flags pick; no run launches the long-query kernels window_general32
+     and window_keys;
+  5. genome  — a synthetic genome (GENOME_MB = 34 Mb of random ACGT in
+     5 Mb records with planted MEG3 homologies, about 34.4 MB, past the
+     CLI's 32 MiB --tpu-stream auto threshold) with MEG3 through the CLI,
+     each run in its own process: under auto (the streaming driver) and
+     under off (the batched driver); both launch K1, K3 and K4 and not
+     the long-query kernels, leave no spill file, and write byte-identical
+     output files and stdout with TFOsorted rows; each run's wall, Mb/s,
+     stage split (FASIM_PROFILE) and peak RSS (ru_maxrss of its process)
+     are printed before the last lines;
+  6. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K1's ssw pass with its G
      cells/s, the SASS count of its step loop a cell (sass_loop), the
      integer ops/s that loop executes, the count of its column block
@@ -80,11 +96,14 @@ Phases, each printing one line with its seconds:
      cells need (scan_ops_per_cell, WINDOW_OPS_PER_CELL) over the card's
      int32 rate (SMs x 64 lanes x the max SM clock) and its bytes over
      3.35 TB/s, and every kernel's ptxas registers;
-  6. trace   — one more default meg3_full run under torch.profiler: the
-     device time by kernel and copy, and their sum against the wall; it
-     fails if the profiler records no device event.
+  7. trace   — the default meg3_full run through the CLI (K1, K3, K4;
+     checked as phase 4 checks its runs, and the main path whose counts
+     the report gives) under torch.profiler: the device time by kernel
+     and copy, and their sum against the wall; it fails if the profiler
+     records no device event.
 
-Then one JSON line of per-kernel results and, last, the line
+Then the walls of phases 4, 5 and 7 with the card's name and power limit,
+the card's line, one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
 so does a machine without a CUDA device.
 """
@@ -92,6 +111,7 @@ so does a machine without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -152,6 +172,59 @@ class ScanKernel(NamedTuple):
 K1_SCAN = ScanKernel("K1", "scan_colmax_kernel", 1, "blocks_per_sm")
 K7_SCAN = ScanKernel("K7", "scan16_kernel", 2, "scan16_blocks_per_sm")
 
+# The synthetic genome of phase 5: 34 Mb of random ACGT, past the CLI's
+# 32 MiB `--tpu-stream auto` threshold (about 34.4 MB on disk).
+GENOME_MB = 34
+GENOME_SEED = 0
+
+
+def synth_genome(path: str, mb: float, rna, seed: int = 0) -> int:
+    """A synthetic chromosome-scale FASTA (copy of the generator of
+    scripts/bench_genome.py): random ACGT in records of 5 Mb, about one
+    homology of the query a 50 kb planted so that hits and clusters
+    exist; returns the bases written."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    total = int(mb * 1e6)
+    rec_len = 5_000_000
+    written = 0
+    with open(path, "w") as f:
+        ri = 0
+        while written < total:
+            n = min(rec_len, total - written)
+            seq = bases[rng.integers(0, 4, n)]
+            # plant ~1 homology per 50 kb so hits and clusters exist
+            for _ in range(max(1, n // 50_000)):
+                lo = int(rng.integers(0, max(1, n - 400)))
+                ql = int(rng.integers(60, min(300, len(rna))))
+                qs = int(rng.integers(0, len(rna) - ql))
+                piece = rna[qs:qs + ql].copy()
+                muts = rng.random(ql) < 0.1
+                piece[muts] = bases[rng.integers(0, 4, int(muts.sum()))]
+                seq[lo:lo + ql] = piece
+            f.write(f">synt|chr{ri + 1}|{written + 1}-{written + n}\n")
+            s = seq.tobytes().decode("latin-1")
+            for i in range(0, n, 80):
+                f.write(s[i:i + 80] + "\n")
+            written += n
+            ri += 1
+    return written
+
+
+def vm_rss_mb(pid: int) -> float:
+    """A process's resident set now (VmRSS of /proc/<pid>/status), MB;
+    0 once it has exited."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    return 0.0
+
 
 def ptxas_registers() -> dict:
     """Registers per kernel entry (mangled name) from the ptxas report of
@@ -202,11 +275,25 @@ def _cell_relu(op: str) -> bool:
     return op.split(".")[0] == "VIADDMNMX" and "RELU" in op.split(".")
 
 
+@functools.lru_cache(maxsize=1)
+def library_sass() -> str:
+    """`cuobjdump -sass` of the built library (build/kernels/
+    libfasim_cuda.so), read once: it takes seconds, and the library does
+    not change after phase 2."""
+    from fasim_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass",
+                           str(_build.BUILD_DIR / _build.LIB_NAME)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def sass_loop(kernel: str, text: str | None = None) -> dict:
     """SASS counts of a scan kernel's step loop, from the first kernel whose
-    mangled name contains `kernel`, in `text` or else `cuobjdump -sass` of
-    the built library (build/kernels/libfasim_cuda.so).  The step loop is
-    the innermost loop (a predicated backward BRA: not one of the
+    mangled name contains `kernel`, in `text` or else `library_sass()`.
+    The step loop is the innermost loop (a predicated backward BRA: not
+    one of the
     unconditional jumps back from the out-of-line divergence paths) around
     the kernel's first SHFL.UP;
     in it, the column block is what a lane runs for a column in range: the
@@ -220,15 +307,8 @@ def sass_loop(kernel: str, text: str | None = None) -> dict:
     import collections
     import re
 
-    from fasim_tpu_torch.kernels import _build
-
     if text is None:
-        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()),
-                                 "cuobjdump")
-        text = subprocess.run([cuobjdump, "-sass",
-                               str(_build.BUILD_DIR / _build.LIB_NAME)],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
+        text = library_sass()
     funcs = re.split(r"\n\s*Function : ", text)
     [body] = [f for f in funcs if f.split("\n", 1)[0].find(kernel) >= 0][:1]
     ins = []
@@ -331,6 +411,7 @@ class Smoke:
         self.ms = {}
         self.plain_ms = {}
         self.launches = {}
+        self.walls = {}
         self.work = {}  # kernel -> (integer ops, bytes) of its timed call
 
     # -- helpers ---------------------------------------------------------
@@ -423,7 +504,7 @@ class Smoke:
         _build.lib()
         print(f"built {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.1f} s")
-        # every kernel's registers are printed in phase 5; here the spills
+        # every kernel's registers are printed in phase 6; here the spills
         log = (_build.BUILD_DIR / "build.log").read_text()
         regs = ptxas_registers()
         entry = None
@@ -520,19 +601,24 @@ class Smoke:
         (gm, cm), segs, lens, eng = self.k1_case("main-path batch", rna,
                                                  main, 5120)
         self.main_k1 = (rna, segs, lens)
+        # K7's own plain version (one launch chain a column) on the main
+        # batch, the NEAT1-length query and the gate edge; the other cases
+        # hold K7 against K1's plain version, the same function inside
+        # K7's gate
         ragged = [self.dna(int(n)) for n in
                   self.rng.integers(100, 5001, 12)]
-        self.k1_case("ragged", rna, ragged, 5120)
+        self.k1_case("ragged", rna, ragged, 5120, k7_plain=False)
         ga = np.frombuffer(b"GA" * (MEG3_M // 2), np.uint8).copy()
         sat = [np.concatenate([self.dna(300), ga[:600], self.dna(400)])
                for _ in range(4)]
-        (gm_s, _), *_ = self.k1_case("GA-rich saturating", ga, sat, 1408)
+        (gm_s, _), *_ = self.k1_case("GA-rich saturating", ga, sat, 1408,
+                                     k7_plain=False)
         require(int(gm_s.max()) >= 251, "GA batch did not saturate")
         rna_u = rna.copy()
         rna_u[self.rng.integers(0, len(rna_u), 20)] = ord("U")
         impure = [self.dna(1800, b"ACGTNacgt") for _ in range(4)]
         _, _, _, eng_u = self.k1_case("impure + U query", rna_u, impure,
-                                      1920)
+                                      1920, k7_plain=False)
         require(not eng_u.query_pure, "U query must disable fused mode")
         # K1's strip edges: one full strip (m16 = 512), two strips with 48
         # zero rows above row 0 (528), three strips (1,040), with N and
@@ -540,7 +626,8 @@ class Smoke:
         for m in (512, 527, 1033):
             self.k1_case(f"strip edge m={m}", self.dna(m),
                          [self.dna(int(n), b"ACGTNacgt")
-                          for n in self.rng.integers(1000, 2001, 6)], 2048)
+                          for n in self.rng.integers(1000, 2001, 6)], 2048,
+                         k7_plain=False)
         # 5 * min(22768, 5120) = 25,600: inside K7's gate, 45 strips
         self.k1_case("NEAT1-length query", self.dna(NEAT1_M),
                      [self.dna(5000) for _ in range(2)], 5120)
@@ -759,6 +846,10 @@ class Smoke:
                       f"equal, best max {int(want[:, 0].max())}, max "
                       f"end_row {int(want[want[:, 0] > 0, 2].max())}")
         for W, cases in k6.items():
+            if m > MEG3_M and W > 64:
+                # K6's plain chain steps every query row: at NEAT1 length
+                # the 64-column cases only (the wider ones at MEG3's)
+                continue
             cols = [torch.cat(c) for c in zip(*cases)]
             self.k6_compare(*cols, eng, True, f"m={m} W={W}")
             print(f"  K6 (both kernels) m={m}, the {len(cases)} cases of "
@@ -860,14 +951,15 @@ class Smoke:
         """K6's 16-bit row gate: at a query of K6_MAX_MREAL - 14 rows, whose
         query rows pass K6_MAX_MREAL, a dispatch whose largest mreal is
         K6_MAX_MREAL launches K6's kernel only, one whose largest mreal is
-        one row past it the long-query kernel only; both equal the plain
-        chain.  The launches are printed here, not in the report's
-        main-path counts."""
+        one row past it the long-query kernel only; both equal K4's plain
+        version window_pass_ref (v1's ends and K4's cannot differ; K6's own
+        plain chain, held against both kernels in k6_compare, would step
+        all 65,522 query rows here).  The launches are printed here, not in
+        the report's main-path counts."""
         np = self.np
         torch = self.torch
-        from fasim_tpu_torch.kernels.window_v1 import (K6_MAX_MREAL, v1_ends,
-                                                       window_keys_ref,
-                                                       window_v1)
+        from fasim_tpu_torch.kernels.window import window_pass_ref
+        from fasim_tpu_torch.kernels.window_v1 import K6_MAX_MREAL, window_v1
 
         m = K6_MAX_MREAL - 14
         eng = self.engine(self.dna(m))
@@ -896,7 +988,7 @@ class Smoke:
 
         cols = [dev(codes), *(dev(a.astype(np.int32)) for a in (
             offs, terms, rl, mreals))]
-        want = v1_ends(cols[0], qc, *cols[1:], m, keys=window_keys_ref)
+        want = window_pass_ref(cols[0], eng._dev["qwin_rev"], *cols[1:], m)
         long_launches = 0
         for what, n, kernel in (
                 (f"largest mreal {K6_MAX_MREAL}", rows - 1, "window_v1"),
@@ -1167,7 +1259,8 @@ class Smoke:
                     f"{case}: stdout differs from the golden")
         return wall
 
-    def wrappers(self) -> dict:
+    @staticmethod
+    def wrappers() -> dict:
         from fasim_tpu_torch.kernels import scan, scan_codes, window, window_v1
 
         return {"scan_colmax": scan.scan_colmax,
@@ -1191,6 +1284,7 @@ class Smoke:
     # long-query kernels of K4 and K6
     LONG = ("window_general32", "window_keys")
     SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
+    STREAM = ["--tpu-stream", "on"]
     # (golden case, DNA, RNA, extra flags, driver, environment, kernels of
     # its path, kernels it must not launch, whether it is a main path whose
     # counts the report gives)
@@ -1204,8 +1298,6 @@ class Smoke:
          False),
         ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
          {}, ("scan_colmax",), (), False),
-        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli", {},
-         ("scan_colmax",), (), False),
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "batched-v1",
          {}, ("scan_codes_colmax", "window_fwd", "window_general"), LONG,
          False),
@@ -1217,35 +1309,221 @@ class Smoke:
          False),
         ("meg3_sub64", "meg3sub64.fa", "MEG3.fa", [], "cli", {}, K135, LONG,
          False),
-        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135, LONG,
-         True),
         ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", SWITCHED,
          ("scan_colmax16", "window_v1"), K135 + LONG, True),
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", STREAM, "cli", {}, K135,
+         LONG, False),
+        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40", *STREAM],
+         "cli", {}, ("scan_colmax",), (), False),
     )
+    # the default MEG3-full run, the main path of K1, K3 and K4: phase 7
+    # drives it under torch.profiler
+    MEG3_FULL = ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135,
+                 LONG, True)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def driver_calls():
+        """Count the calls of the CLI's two file drivers in the block."""
+        import collections
+
+        from fasim_tpu_torch.scan import batched
+
+        calls = collections.Counter()
+        saved = {name: getattr(batched, name)
+                 for name in ("scan_file_batched", "scan_file_stream")}
+        for name, fn in saved.items():
+            def counted(*args, _fn=fn, _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*args, **kw)
+
+            setattr(batched, name, counted)
+        try:
+            yield calls
+        finally:
+            for name, fn in saved.items():
+                setattr(batched, name, fn)
+
+    def golden_case(self, case: str, f1: str, f2: str, extra: list,
+                    driver: str, env: dict, kernels: tuple, off: tuple,
+                    main: bool, note: str = "") -> None:
+        """One entry of GOLDENS: its run against the golden with the counts
+        set to 0 just before it and read just after, its kernels launched,
+        those of `off` not, the driver its flags pick, no spill file left;
+        its wall kept, and its counts too where it is a main path."""
+        stream = "--tpu-stream" in extra
+        flags = "".join(f", {k}={v}" for k, v in env.items())
+        run = (f"{case} ({driver}{', --tpu-stream on' if stream else ''}"
+               f"{flags}){note}")
+        with tempfile.TemporaryDirectory() as spill, \
+                switches(**env, FASIM_SPILL_DIR=spill), \
+                self.driver_calls() as calls:
+            self.reset_counts()
+            wall = self.run_golden(case, f1, f2, extra, driver)
+            counts = self.read_counts()
+            left = [f for f in os.listdir(spill)
+                    if f.startswith("fasim-strspill-")]
+        require(not left, f"{run}: spill files left behind: {left}")
+        if driver == "cli":
+            want = "scan_file_stream" if stream else "scan_file_batched"
+            require(calls == {want: 1}, f"{run}: drivers run {calls}")
+        print(f"  {run}: byte-identical, wall {wall:.3f} s, launches "
+              f"{counts}")
+        for k in kernels:
+            require(counts[k] > 0, f"{run}: kernel {k} was never launched")
+        for k in off:
+            require(counts[k] == 0, f"{run}: kernel {k} was launched "
+                    f"{counts[k]} times")
+        self.walls[run] = wall
+        if main:
+            self.launches.update({k: counts[k] for k in kernels})
 
     def phase_e2e(self) -> None:
-        self.walls = {}
-        for (case, f1, f2, extra, driver, env, kernels, off,
-             main) in self.GOLDENS:
-            flags = "".join(f", {k}={v}" for k, v in env.items())
-            run = f"{case} ({driver}{flags})"
-            with switches(**env):
-                self.reset_counts()
-                wall = self.run_golden(case, f1, f2, extra, driver)
-                counts = self.read_counts()
-            print(f"  {run}: byte-identical, wall {wall:.3f} s, launches "
-                  f"{counts}")
-            for k in kernels:
-                require(counts[k] > 0, f"{run}: kernel {k} was never "
-                        "launched")
-            for k in off:
-                require(counts[k] == 0, f"{run}: kernel {k} was launched "
-                        f"{counts[k]} times")
-            self.walls[run] = wall
-            if main:
-                self.launches.update({k: counts[k] for k in kernels})
+        for entry in self.GOLDENS:
+            self.golden_case(*entry)
 
     # -- phase 5 ---------------------------------------------------------
+
+    # one CLI run in its own process, then on stderr the launch counts of
+    # its kernels, the drivers it ran and its peak resident set (Linux:
+    # ru_maxrss in KiB)
+    GENOME_RUN = """
+import json
+import resource
+import sys
+
+import chip_smoke
+from fasim_tpu_torch import cli
+
+with chip_smoke.Smoke.driver_calls() as calls:
+    rc = cli.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({k: fn.launches for k, fn in
+                                chip_smoke.Smoke.wrappers().items()}),
+      file=sys.stderr)
+print("DRIVERS " + json.dumps(calls), file=sys.stderr)
+print("PEAK_RSS_MB " + json.dumps(
+    resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+    GENOME_TIMEOUT_S = 540
+    RSS_EVERY_S = 2
+
+    def phase_genome(self) -> None:
+        """The synthetic genome (GENOME_MB of random ACGT, past the CLI's
+        32 MiB `--tpu-stream auto` threshold) with MEG3 through the CLI,
+        each run in its own process: under `auto`, which streams, and under
+        `off`, the batched driver.  Both exit 0, launch K1, K3 and K4 and
+        not the long-query kernels, leave no spill file, and write the
+        same bytes to every output file and stdout; the TFOsorted holds
+        rows.  Each run's wall, Mb/s, stage split and peak RSS are kept
+        for the lines printed before the last."""
+        import filecmp
+
+        from fasim_tpu_torch import cli
+        from fasim_tpu_torch.config import TpuConfig
+        from fasim_tpu_torch.io import fasta
+
+        self.genome = []
+        with tempfile.TemporaryDirectory() as tmp:
+            _, rna = fasta.read_rna(os.path.join(ORACLE, "MEG3.fa"))
+            shutil.copy(os.path.join(ORACLE, "MEG3.fa"), tmp)
+            path = os.path.join(tmp, "genome.fa")
+            t0 = time.perf_counter()
+            bases = synth_genome(path, GENOME_MB, rna, GENOME_SEED)
+            size = os.path.getsize(path)
+            print(f"  genome.fa: {bases} bases in {-(-bases // 5_000_000)}"
+                  f" records, {size} bytes (auto streams past "
+                  f"{cli.STREAM_AUTO_BYTES}), written in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            require(cli.wants_stream(TpuConfig(stream="auto"), path),
+                    f"--tpu-stream auto does not stream {size} bytes")
+            outs = {mode: self.genome_run(tmp, mode, bases)
+                    for mode in ("auto", "off")}
+            names = sorted(os.listdir(os.path.join(tmp, "out_auto")))
+            require(names == sorted(os.listdir(os.path.join(tmp, "out_off")))
+                    and len(names) == 3, f"genome: output files {names}")
+            for name in names:
+                require(filecmp.cmp(os.path.join(tmp, "out_auto", name),
+                                    os.path.join(tmp, "out_off", name),
+                                    shallow=False),
+                        f"genome: {name} differs between auto and off")
+            require(outs["auto"] == outs["off"],
+                    "genome: stdout differs between auto and off")
+            [tfo] = [n for n in names if n.endswith("-TFOsorted")]
+            with open(os.path.join(tmp, "out_auto", tfo)) as f:
+                rows = sum(1 for _ in f) - 1
+            require(rows > 0, "genome: the TFOsorted holds no row")
+            print(f"  genome: auto and off byte-identical, {rows} TFOsorted"
+                  " rows")
+
+    def genome_run(self, tmp: str, mode: str, bases: int) -> list:
+        """One `--tpu-stream mode` CLI process on genome.fa; its stdout."""
+        spill = os.path.join(tmp, f"spill_{mode}")
+        os.mkdir(spill)
+        os.mkdir(os.path.join(tmp, f"out_{mode}"))
+        env = dict(os.environ, PYTHONPATH=REPO, FASIM_SPILL_DIR=spill)
+        run = f"genome --tpu-stream {mode}"
+        rss = []  # the process's resident set (MB), every RSS_EVERY_S
+        t0 = time.perf_counter()
+        with tempfile.TemporaryFile("w+") as out, \
+                tempfile.TemporaryFile("w+") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", self.GENOME_RUN, "-f1", "genome.fa",
+                 "-f2", "MEG3.fa", "-O", f"out_{mode}/", "--tpu-profile",
+                 "true", "--tpu-stream", mode], cwd=tmp, env=env,
+                stdout=out, stderr=err, text=True)
+            try:
+                while proc.poll() is None:
+                    require(time.perf_counter() - t0 < self.GENOME_TIMEOUT_S,
+                            f"{run}: no end in {self.GENOME_TIMEOUT_S} s")
+                    rss.append(vm_rss_mb(proc.pid))
+                    try:
+                        proc.wait(timeout=self.RSS_EVERY_S)
+                    except subprocess.TimeoutExpired:
+                        pass
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+        require(proc.returncode == 0,
+                f"{run}: exit {proc.returncode}: {stderr[-3000:]}")
+        tagged = {}
+        for line in stderr.splitlines():
+            tag, _, rest = line.partition(" ")
+            if tag in ("FASIM_PROFILE", "LAUNCHES", "DRIVERS", "PEAK_RSS_MB"):
+                tagged[tag] = json.loads(rest)
+        prof, counts = tagged["FASIM_PROFILE"], tagged["LAUNCHES"]
+        streamed = mode == "auto"
+        want = "scan_file_stream" if streamed else "scan_file_batched"
+        require(tagged["DRIVERS"] == {want: 1},
+                f"{run}: drivers run {tagged['DRIVERS']}")
+        for k in self.K135:
+            require(counts[k] > 0, f"{run}: kernel {k} was never launched")
+        for k in self.LONG:
+            require(counts[k] == 0, f"{run}: kernel {k} was launched")
+        left = os.listdir(spill)
+        require(not left, f"{run}: spill files left behind: {left}")
+        split = {k: v for k, v in prof.items() if not k.startswith("n_")}
+        quarters = [round(max(rss[:max(1, len(rss) * q // 4)], default=0))
+                    for q in (1, 2, 3, 4)]
+        self.genome.append(
+            f"genome {bases / 1e6:g} Mb x MEG3, --tpu-stream {mode} "
+            f"({'streaming' if streamed else 'batched'} driver): wall "
+            f"{wall:.3f} s for the process ({prof['wall']} s in its run), "
+            f"{bases / 1e6 / wall:.4f} Mb/s, peak RSS "
+            f"{tagged['PEAK_RSS_MB']:.1f} MB (ru_maxrss of the process; the "
+            f"largest VmRSS sampled by the end of each quarter of the "
+            f"run {quarters} MB), launches {counts}, stages "
+            f"{json.dumps(split)} on {self.smi}")
+        print("  " + self.genome[-1])
+        return stdout.splitlines()
+
+    # -- phase 6 ---------------------------------------------------------
 
     def phase_times(self) -> None:
         self.k1_times()
@@ -1728,22 +2006,24 @@ class Smoke:
         print("  K5 at NEAT1 length by plan: " + ", ".join(
             f"{p} {t:.3f} ms" for p, t in times.items()))
 
-    # -- phase 6 ---------------------------------------------------------
+    # -- phase 7 ---------------------------------------------------------
 
     def phase_trace(self) -> None:
-        """One more default MEG3-full run through the CLI, under
-        torch.profiler: the device time of each kernel and copy (CUDA
-        activity events, summed by name) and their sum against the run's
-        wall.  The report's launch counts stay phase 4's."""
+        """The default MEG3-full run through the CLI (MEG3_FULL, checked as
+        phase 4 checks its runs; the report's counts of K1, K3 and K4),
+        under torch.profiler: the device time of each kernel and copy
+        (CUDA activity events, summed by name) and their sum against the
+        run's wall."""
         import collections
 
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        note = " under torch.profiler"
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = self.run_golden("meg3_full", "meg3dna.fa", "MEG3.fa", [],
-                                   "cli")
+            self.golden_case(*self.MEG3_FULL, note=note)
+        [wall] = [w for run, w in self.walls.items() if run.endswith(note)]
         busy_us = collections.Counter()
         count = collections.Counter()
         for evt in prof.events():
@@ -1753,9 +2033,9 @@ class Smoke:
         require(len(busy_us) > 0, "meg3_full under torch.profiler: the "
                 "profiler recorded no device events")
         busy = sum(busy_us.values()) / 1e6
-        print(f"  meg3_full (cli) under torch.profiler: byte-identical, wall "
-              f"{wall:.3f} s, device busy {busy:.3f} s summed over kernels "
-              f"and copies ({busy / wall:.1%} of the wall)")
+        print(f"  meg3_full (cli) under torch.profiler: device busy "
+              f"{busy:.3f} s summed over kernels and copies ({busy / wall:.1%}"
+              f" of the wall {wall:.3f} s)")
         for name, us in busy_us.most_common(16):
             print(f"    {us / 1e3:.3f} ms in {count[name]} x {name[:100]}")
 
@@ -1783,7 +2063,7 @@ class Smoke:
         return {"kernels": out}
 
 
-PHASES = ("device", "build", "kernels", "e2e", "times", "trace")
+PHASES = ("device", "build", "kernels", "e2e", "genome", "times", "trace")
 
 
 def main() -> int:
@@ -1814,6 +2094,8 @@ def main() -> int:
         return 1
     for run, wall in smoke.walls.items():
         print(f"wall {run}: {wall:.3f} s on {smoke.smi}")
+    for line in smoke.genome:
+        print(line)
     print(smoke.smi)
     print(json.dumps(smoke.report()))
     print(json.dumps({"ok": True, "device": {

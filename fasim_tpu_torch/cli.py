@@ -10,16 +10,18 @@ JAX package's.  Framework flags keep the JAX package's --tpu- prefix.
 `--tpu-engine` picks the engine:
 
   * cuda (default; auto means cuda): TorchScanEngine on cuda:0 with the
-    hand-written kernels, batched driver; raises when
-    torch.cuda.is_available() is false;
-  * torch: TorchScanEngine on the CPU with the kernels' plain versions,
-    batched driver;
+    hand-written kernels; raises when torch.cuda.is_available() is false;
+  * torch: TorchScanEngine on the CPU with the kernels' plain versions;
   * numpy: the per-segment path (scan/pipeline.py) with the NumPy golden
     engine (kernels/batch_np.py).
 
-`-F` (exact SIM) runs on every engine.  Not ported yet (ROADMAP.md §1):
-the device SIM forward scan (--tpu-sim-device, FASIM_SIM_DEVICE=1), the
-streaming driver (--tpu-stream on) and more than one device
+The cuda and torch engines run the batched driver, or the streaming one
+(records read one at a time, hits in a columnar store whose alignment
+strings spill to FASIM_SPILL_DIR, default TMPDIR) under `--tpu-stream
+on`, and under `auto` (the default) when the DNA file is larger than
+32 MiB (`wants_stream`).  `-F` (exact SIM) runs on every engine.  Not
+ported yet (ROADMAP.md §1): the device SIM forward scan
+(--tpu-sim-device, FASIM_SIM_DEVICE=1) and more than one device
 (--tpu-dp-devices 2 or more; 0 and 1 run one engine on cuda:0).
 """
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -121,6 +124,7 @@ def show_help() -> None:
           "(per-segment golden)\n"
           "other: --tpu-dp-devices 1  --tpu-segments-per-batch 64  "
           "--tpu-max-inflight 4  "
+          "--tpu-stream auto|on|off  "
           "--tpu-stdout-compat true  --tpu-profile true")
     sys.exit(1)
 
@@ -143,9 +147,20 @@ def make_engine(tpu: TpuConfig, rna: np.ndarray):
     sys.exit(f"unknown engine {which!r} (cuda|torch|numpy)")
 
 
+STREAM_AUTO_BYTES = 32 * 1024 * 1024
+
+
+def wants_stream(tpu: TpuConfig, path: str) -> bool:
+    """Whether `--tpu-stream` picks the streaming driver for the DNA file
+    at `path`: always under `on`, under `auto` when the file is larger
+    than 32 MiB (fasim_tpu/cli.py:188-191), never otherwise."""
+    return tpu.stream == "on" or (
+        tpu.stream == "auto" and os.path.getsize(path) > STREAM_AUTO_BYTES)
+
+
 def main(argv: list[str] | None = None) -> int:
     from .kernels.batch_np import numpy_engine
-    from .scan.batched import scan_file_batched
+    from .scan.batched import scan_file_batched, scan_file_stream
     from .scan.pipeline import scan_file
 
     p, tpu = parse_args(sys.argv[1:] if argv is None else argv)
@@ -153,9 +168,6 @@ def main(argv: list[str] | None = None) -> int:
         sys.exit("--tpu-sim-device / FASIM_SIM_DEVICE=1 (the -F forward "
                  "scan on the device) is not ported to fasim_tpu_torch yet "
                  "(ROADMAP.md §1, item 5)")
-    if tpu.stream == "on":
-        sys.exit("--tpu-stream on is not ported to fasim_tpu_torch yet "
-                 "(ROADMAP.md §1, item 4)")
     if tpu.dp_devices >= 2:
         sys.exit(f"--tpu-dp-devices {tpu.dp_devices}: more than one GPU is "
                  "not ported to fasim_tpu_torch yet (ROADMAP.md §1, item 6);"
@@ -165,9 +177,10 @@ def main(argv: list[str] | None = None) -> int:
         engine = make_engine(tpu, rna)
         if engine is None:
             return scan_file(p, engine=numpy_engine)
-        return scan_file_batched(p, engine,
-                                 batch_pairs=tpu.segments_per_batch,
-                                 max_inflight=tpu.max_inflight)
+        runner = (scan_file_stream if wants_stream(tpu, p.file1path)
+                  else scan_file_batched)
+        return runner(p, engine, batch_pairs=tpu.segments_per_batch,
+                      max_inflight=tpu.max_inflight)
 
     return run(p, tpu, scan)
 
@@ -175,9 +188,10 @@ def main(argv: list[str] | None = None) -> int:
 def run(p: Params, tpu: TpuConfig, scan) -> int:
     """One run: the reference's stdout lines around
     `scan(p, rna) -> (records, lnc_name, rna, triplexes)` and the output
-    files.  `main` passes the scan `--tpu-engine` picks; a caller may pass
-    another driver or engine (chip_smoke.py runs the per-segment path on
-    the card through here)."""
+    files (records may be streamed `RecordMeta`s and triplexes a
+    `TriplexStore`).  `main` passes the scan `--tpu-engine` picks; a
+    caller may pass another driver or engine (chip_smoke.py runs the
+    per-segment path on the card through here)."""
     from .io import fasta
     from .post.output import print_result
     from .profiling import STAGES
@@ -200,9 +214,13 @@ def run(p: Params, tpu: TpuConfig, scan) -> int:
                 print(f"dnaPos = {s}")
     records, lnc_name, rna, tlist = scan(p, rna_probe)
     first = records[0]
-    print_result(p, first.species, lnc_name, tlist, first.chro_tag,
-                 len(first.seq), first.start_genome,
-                 stdout_compat=tpu.stdout_compat)
+    # a streamed record keeps its length, not its sequence
+    dna_size = (first.seq_len if hasattr(first, "seq_len")
+                else len(first.seq))
+    with STAGES.timer("output"):
+        print_result(p, first.species, lnc_name, tlist, first.chro_tag,
+                     dna_size, first.start_genome,
+                     stdout_compat=tpu.stdout_compat)
     print("finished normally")
     if tpu.stdout_compat:
         # reference: clock()-based CPU seconds (never byte-compared)
@@ -215,5 +233,22 @@ def run(p: Params, tpu: TpuConfig, scan) -> int:
     return 0
 
 
+def entry() -> None:
+    """`python -m fasim_tpu_torch.cli`: `main`, then exit with its status.
+    When the scan watchdog fires, the process ends at once with status 1:
+    the wedged thread never returns, and a normal interpreter exit would
+    wait for it (concurrent.futures joins its worker threads at exit)."""
+    from .scan.batched import WatchdogError
+
+    try:
+        code = main()
+    except WatchdogError:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.exit(code)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    entry()

@@ -70,10 +70,10 @@ class TpuConfig:
     # "dnaPos = N" per segment, the print_cluster level-quirk lines and
     # "Running time is ..."; Fasim-LongTarget.cpp:192,398,698,170).
     stdout_compat: bool = False
-    # Streaming record reader for genome-scale inputs.  The port has no
-    # streaming driver yet: "auto" and "off" run the batched driver at any
-    # DNA size (fasim_tpu streams under "auto" past 32 MB), and the CLI
-    # refuses "on".
+    # Streaming driver for genome-scale inputs (records read one at a
+    # time, hits in a columnar store): "on" streams, "off" runs the
+    # batched driver, "auto" streams when the DNA file is larger than
+    # 32 MiB (cli.wants_stream).
     stream: str = "auto"
     # -F only: run the SIM forward scan on the device (fasim_tpu's
     # kernels/sim_dev).  Not ported: the port's CLI refuses it, and env

@@ -218,6 +218,11 @@ def print_result(p: Params, species: str, lnc_name: str,
     """printResult (Fasim-LongTarget.cpp:797-845).  Returns the TFOsorted
     path.  species/chro_tag/dna_size/start_genome come from the FIRST DNA
     record (main:164-166)."""
+    if not isinstance(tlist, list):  # columnar TriplexStore (streaming)
+        from .store import print_result_store
+
+        return print_result_store(p, species, lnc_name, tlist, chro_tag,
+                                  dna_size, start_genome, stdout_compat)
     file_name = p.file1path[: len(p.file1path) - 3]  # strips ".fa" (main:123)
     out_path = (p.outpath + "/" + species + "-" + lnc_name + "-"
                 + file_name + "-TFOsorted")

@@ -1,27 +1,38 @@
-"""Batched scan of the port.
+"""Batched and streaming scan of the port.
 
 Counterpart of fasim_tpu/scan/batched.py (iter_scan_work, scan_work,
-scan_records, scan_file_batched) for a `TorchScanEngine`, with copies of
-that module's host helpers (`_Work`, `enumerate_work`, `_ScanMeta`, the
-`-F` branch of `_host_segment_stage`, `_sim_pool`, `corenum_buckets`,
-`filter_fix_record`, `finalize_record_into`, `finalize_records`).  The
-fastSIM candidate stage is the port's scan/candidates.py, so the output
-is byte-identical to the JAX package's.  Differences from
-fasim_tpu.scan.batched:
+scan_records, scan_file_batched, RecordMeta, scan_file_stream) for a
+`TorchScanEngine`, with copies of that module's host helpers (`_Work`,
+`enumerate_work`, `_ScanMeta`, the `-F` branch of `_host_segment_stage`,
+`_sim_pool`, `corenum_buckets`, `filter_fix_record`,
+`finalize_record_into`, `finalize_records`, the glibc heap settings
+`_LIBC` and `malloc_trim`).  The fastSIM candidate stage is the port's
+scan/candidates.py, so the output is byte-identical to the JAX
+package's.  Differences from fasim_tpu.scan.batched:
 
   * no prewarm: CUDA kernels are not compiled per shape;
   * the packed candidates come back with one `.cpu()` of the pos / val
     slices after the counts, instead of `jax.device_get`;
   * `-F` (exact SIM) fetches only the thresholds and runs the native SIM
     per segment on the host; the device variant of its forward scan
-    (FASIM_SIM_DEVICE) and the streaming scan are not ported;
-  * the default CUDA stream of one device.
+    (FASIM_SIM_DEVICE) is not ported;
+  * the default CUDA stream of one device;
+  * when the watchdog fires, the thread pools are shut down without
+    waiting for the wedged thread, and its message names no checkpoint
+    (the port has none);
+  * no opt-in mmap threshold pin (FASIM_MMAP_PIN): the JAX package
+    measured it at peak RSS 3142 -> 2995 MB for +54% wall, and nothing
+    here turns it on;
+  * `scan_file_stream` closes its store (and removes its spill file) when
+    the scan raises.
 
 Batches are dispatched up to `max_inflight` ahead; one stage thread per
 in-flight batch waits for its device results and runs the candidate
 stage, and the host finalize runs on a thread pool.  Results are yielded
 in input order, so the output does not depend on the window or thread
-counts.
+counts.  `scan_file_batched` reads every record first and returns a
+Triplex list; `scan_file_stream` reads one record at a time and returns
+a columnar `post.store.TriplexStore`, for genome-scale inputs.
 """
 
 from __future__ import annotations
@@ -29,7 +40,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutTimeout
 
 import numpy as np
 import torch
@@ -41,15 +54,19 @@ from ..profiling import STAGES
 from .candidates import candidate_stage_batch
 from .pipeline import Triplex, _sim
 
-# glibc: cap the malloc arenas before any worker thread exists, as
-# fasim_tpu/scan/batched.py does at import — freed short-lived host
-# mirrors (colmax rows, packed candidates) otherwise keep RSS growing
+# glibc heap knobs for the long streamed runs: freed short-lived host
+# mirrors (colmax rows, packed candidates) otherwise keep RSS growing.
+# The arena cap must be applied BEFORE any worker thread exists — arenas
+# created earlier escape it — so it runs at module import, not inside
+# the driver.
 try:
     import ctypes
 
-    ctypes.CDLL("libc.so.6").mallopt(-8, 4)  # M_ARENA_MAX
+    _LIBC = ctypes.CDLL("libc.so.6")
+    _LIBC.mallopt(-8, 4)  # M_ARENA_MAX
 except OSError:
-    pass
+    _LIBC = None
+
 
 _SIM_POOL = None
 
@@ -258,6 +275,11 @@ def _process_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
                                  pool, cm_fallback=cm_fallback)
 
 
+class WatchdogError(RuntimeError):
+    """A device batch or host finalize task made no progress within
+    FASIM_WATCHDOG_S: its thread is wedged and never returns."""
+
+
 def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
                    engine, n_pad: int, batch_pairs: int = 64,
                    host_threads: int = 0, max_inflight: int = 4):
@@ -276,35 +298,54 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
     rna_b = rna.tobytes()
     inflight: collections.deque = collections.deque()
     done: collections.deque = collections.deque()
+    pool = ThreadPoolExecutor(max_workers=host_threads)
     # one stage thread per in-flight batch: a batch's window passes and
     # transfers overlap the next batches' scans
-    with ThreadPoolExecutor(max_workers=host_threads) as pool, \
-            ThreadPoolExecutor(max_workers=max_inflight) as stages:
+    stages = ThreadPoolExecutor(max_workers=max_inflight)
+    # Watchdog: cap every blocking wait so that a wedged batch surfaces as
+    # a clear error instead of an indefinite hang.  Kernel launches are
+    # asynchronous, so a hung kernel blocks the `.cpu()` read-back in a
+    # stage thread, and with it the stage batch's future; a stuck native
+    # call blocks a host finalize future.
+    wd = float(os.environ.get("FASIM_WATCHDOG_S", "1800"))
+    wedged = False
 
-        def drain_done(min_keep: int):
-            # pop finished stage batches (in order); block on the oldest
-            # while more than min_keep are queued
-            while done and (len(done) > min_keep or done[0].done()):
-                for w0, fut in done.popleft().result():
-                    with STAGES.timer("host_candidate_wait"):
-                        hits = fut.result()
-                    yield w0, hits
+    def _result(fut, what: str):
+        nonlocal wedged
+        try:
+            return fut.result(timeout=wd)
+        except FutTimeout:
+            wedged = True
+            raise WatchdogError(
+                f"scan watchdog: {what} made no progress for {wd:.0f}s — "
+                "a kernel or the device is likely wedged; rerun") from None
 
-        def dispatch(batch: list[_Work]) -> None:
-            segs = np.zeros((len(batch), n_pad), np.uint8)
-            lengths = np.zeros(len(batch), np.int32)
-            for i, w in enumerate(batch):
-                segs[i, :len(w.segment)] = w.segment
-                lengths[i] = len(w.segment)
-            with STAGES.timer("device_dispatch"):
-                if p.do_fast_sim:
-                    out = engine.scan_segments_packed(segs, lengths)
-                else:
-                    out = engine.scan_segments(segs, lengths)
-            inflight.append(stages.submit(
-                _process_batch, p, rna, q_idx, rna_b, meta, batch, segs,
-                lengths, engine, out, pool))
+    def drain_done(min_keep: int):
+        # pop finished stage batches (in order); block on the oldest
+        # while more than min_keep are queued
+        while done and (len(done) > min_keep or done[0].done()):
+            for w0, fut in _result(done.popleft(), "a device batch"):
+                with STAGES.timer("host_candidate_wait"):
+                    hits = _result(fut, "a host finalize task")
+                yield w0, hits
 
+    def dispatch(batch: list[_Work]) -> None:
+        segs = np.zeros((len(batch), n_pad), np.uint8)
+        lengths = np.zeros(len(batch), np.int32)
+        for i, w in enumerate(batch):
+            segs[i, :len(w.segment)] = w.segment
+            lengths[i] = len(w.segment)
+        with STAGES.timer("device_dispatch"):
+            if p.do_fast_sim:
+                out = engine.scan_segments_packed(segs, lengths)
+            else:
+                out = engine.scan_segments(segs, lengths)
+        inflight.append(stages.submit(
+            _process_batch, p, rna, q_idx, rna_b, meta, batch, segs,
+            lengths, engine, out, pool))
+
+    try:
+        nbatch = 0
         batch: list[_Work] = []
         for w in work_iter:
             batch.append(w)
@@ -314,6 +355,11 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
                 done.append(inflight.popleft())
             yield from drain_done(min_keep=host_backlog)
             dispatch(batch)
+            nbatch += 1
+            # return free heap to the OS every few batches (the arena cap
+            # is applied at module import)
+            if _LIBC is not None and nbatch % 8 == 0:
+                _LIBC.malloc_trim(0)
             batch = []
         if batch:
             if len(inflight) >= max_inflight:
@@ -322,6 +368,10 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
         done.extend(inflight)
         inflight.clear()
         yield from drain_done(min_keep=0)
+    finally:
+        # a wedged thread never returns: do not wait for it
+        for ex in (stages, pool):
+            ex.shutdown(wait=not wedged, cancel_futures=wedged)
 
 
 def scan_work(p: Params, rna: np.ndarray, work: list[_Work],
@@ -360,3 +410,78 @@ def scan_file_batched(p: Params, engine, batch_pairs: int = 64,
     per_record = scan_records(p, records, rna, engine, batch_pairs,
                               host_threads, max_inflight)
     return records, lnc_name, rna, finalize_records(p, records, per_record)
+
+
+@dataclasses.dataclass
+class RecordMeta:
+    """Header metadata of a streamed record (sequence dropped)."""
+
+    species: str
+    chro_tag: str
+    start_genome: int
+    seq_len: int
+
+
+def scan_file_stream(p: Params, engine, batch_pairs: int = 64,
+                     host_threads: int = 0, max_inflight: int = 4,
+                     spill_dir: str | None = None):
+    """Genome-scale streaming scan: records read lazily (one in memory at
+    a time), segments flow through the bounded-window driver, and each
+    record's hits are filtered + coordinate-fixed as soon as the record
+    completes, then appended to a columnar TriplexStore (numeric columns
+    in RAM at ~60 B/hit; the alignment strings spill to a file in
+    `spill_dir` — default FASIM_SPILL_DIR, else TMPDIR; an empty
+    FASIM_SPILL_DIR keeps them in RAM — until TFOsorted-write time).
+    Memory is O(dispatch window + current record + numeric hit columns),
+    not O(genome).  Returns (record_metas, lnc_name, rna, store); the
+    store yields output files byte-identical to scan_file_batched's list
+    through post.output.print_result (tests/test_torch_stream.py)."""
+    from ..post.store import TriplexStore
+
+    lnc_name, rna = fasta.read_rna(p.file2path)
+    metas: list[RecordMeta] = []
+
+    def gen():
+        for ri, rec in enumerate(fasta.iter_dna(p.file1path)):
+            metas.append(RecordMeta(rec.species, rec.chro_tag,
+                                    rec.start_genome, len(rec.seq)))
+            segs, starts = fasta.cut_sequence(rec.seq, p.cut_length,
+                                              p.overlap_length)
+            for seg, start in zip(segs, starts):
+                if fasta.same_seq(seg):
+                    continue
+                yield _Work(ri, start, seg)
+
+    scans = rules.scan_list(p.rule, p.strand)
+    # a segment is at most cut_length long; the records are not read
+    # ahead for the longest one
+    n_pad = (p.cut_length + 127) // 128 * 128
+    nbuckets = max(1, p.corenum)
+    if spill_dir is None:
+        spill_dir = os.environ.get("FASIM_SPILL_DIR",
+                                   tempfile.gettempdir())
+    store = TriplexStore(spill_dir=spill_dir or None)
+
+    def flush(ri: int, lst: list[Triplex]) -> None:
+        with STAGES.timer("store_append"):
+            store.add_record(ri % nbuckets, metas[ri].chro_tag,
+                             filter_fix_record(p, metas[ri], lst))
+
+    cur_ri = -1
+    cur: list[Triplex] = []
+    try:
+        for w, found in iter_scan_work(p, rna, gen(), scans, engine, n_pad,
+                                       batch_pairs, host_threads,
+                                       max_inflight):
+            if w.record_idx != cur_ri:
+                if cur_ri >= 0:
+                    flush(cur_ri, cur)
+                cur_ri = w.record_idx
+                cur = []
+            cur.extend(found)
+        if cur_ri >= 0:
+            flush(cur_ri, cur)
+    except BaseException:
+        store.close()  # no output follows: remove the spill file now
+        raise
+    return metas, lnc_name, rna, store.finalize()

@@ -2,7 +2,8 @@
 --tpu-engine torch`, the kernels' plain versions on the CPU): output
 files byte-identical to the committed goldens, stdout too except the
 `Running time is` line (as tests/test_e2e_golden.py checks the JAX
-package).  Also: the port never loads jax, and the CUDA engine raises
+package), with the batched driver and, on two goldens, the streaming
+one.  Also: the port never loads jax, and the CUDA engine raises
 without a device instead of falling back to the CPU."""
 
 import filecmp
@@ -42,6 +43,20 @@ def test_port_cli_switch_paths_byte_identical(tmp_path):
     version and every window pass on K6's."""
     _check_cli(tmp_path, "h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"],
                {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"})
+
+
+@pytest.mark.parametrize("case,f1,f2,extra", [
+    ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"]),
+    ("meg3_sub3", "meg3sub3.fa", "MEG3.fa", []),
+])
+def test_port_cli_stream_byte_identical(tmp_path, case, f1, f2, extra):
+    """The streaming driver (`--tpu-stream on`): the goldens byte for byte,
+    and no spill file left behind in FASIM_SPILL_DIR."""
+    spill = tmp_path / "spill"
+    spill.mkdir()
+    _check_cli(tmp_path, case, f1, f2, [*extra, "--tpu-stream", "on"],
+               {"FASIM_SPILL_DIR": str(spill)})
+    assert os.listdir(spill) == []
 
 
 def _check_cli(tmp_path, case, f1, f2, extra, env):
@@ -139,16 +154,19 @@ def test_tpu_kernel_flags_are_unknown(flag):
 
 
 @pytest.mark.parametrize("n", [0, 1, 2])
-def test_tpu_dp_devices_flag(n, monkeypatch):
+def test_tpu_dp_devices_flag(n, monkeypatch, tmp_path):
     """--tpu-dp-devices, a flag of the reference's help (fasim_tpu/cli.py):
     0 and 1 run the batched driver on one engine on cuda:0, as without the
     flag; 2 or more exit with a message (more than one GPU is not ported).
-    The engine and the driver are stand-ins: nothing is scanned."""
+    The engine and the driver are stand-ins: nothing is scanned; the empty
+    DNA file is there for `--tpu-stream auto` to read its size."""
     from fasim_tpu_torch import cli
     from fasim_tpu_torch.kernels import engine as engine_mod
     from fasim_tpu_torch.scan import batched
 
-    argv = ["-f1", "a.fa", "-f2", "b.fa", "--tpu-dp-devices", str(n)]
+    dna = tmp_path / "a.fa"
+    dna.touch()
+    argv = ["-f1", str(dna), "-f2", "b.fa", "--tpu-dp-devices", str(n)]
     assert cli.parse_args(argv)[1].dp_devices == n
     assert cli.parse_args(argv[:4])[1].dp_devices == 0
     made, driven = [], []

@@ -1,8 +1,9 @@
 """The port stands alone: with `jax` and the JAX package `fasim_tpu`
 blocked at import, every module of `fasim_tpu_torch` and `chip_smoke`
 imports, and a scan, a window pass, the numpy_engine call, the
-per-segment pipeline, a `-F` scan and a batched scan under FASIM_SCAN16=1
-FASIM_WIN_V1=1 run on the CPU."""
+per-segment pipeline, a `-F` scan, the streaming driver with its
+columnar store and a batched scan under FASIM_SCAN16=1 FASIM_WIN_V1=1 run
+on the CPU."""
 
 import os
 import subprocess
@@ -72,8 +73,31 @@ work, _ = batched.enumerate_work(Params(do_fast_sim=False),
                                  [type("R", (), {"seq": dna})()])
 batched.scan_work(Params(do_fast_sim=False), rna, work, scans, eng)
 assert hits and hits_f, (len(hits), len(hits_f))
-# the switch paths (K7 and K6 plain versions) give the default path's hits
+# the streaming driver and its columnar store, through the output writer
 import os
+import tempfile
+
+from fasim_tpu_torch.post.output import print_result
+
+home = os.getcwd()
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)  # output names embed the -f1 path
+    with open("d.fa", "w") as f:
+        f.write(">sp|chr1|1-300\n" + dna.tobytes().decode() + "\n")
+    with open("r.fa", "w") as f:
+        f.write(">q\n" + rna.tobytes().decode() + "\n")
+    p = Params(file1path="d.fa", file2path="r.fa", outpath=".")
+    _, _, _, tl = batched.scan_file_batched(p, eng)
+    metas, lnc, _, store = batched.scan_file_stream(p, eng,
+                                                    spill_dir="spill")
+    assert [m.seq_len for m in metas] == [300]
+    assert len(store) == len(tl) > 0, (len(store), len(tl))
+    print_result(p, metas[0].species, lnc, store, metas[0].chro_tag,
+                 metas[0].seq_len, metas[0].start_genome)
+    assert os.listdir("spill") == []
+    assert os.path.getsize("sp-q-d-TFOsorted") > 0
+    os.chdir(home)
+# the switch paths (K7 and K6 plain versions) give the default path's hits
 
 rec = [type("R", (), {"seq": dna})()]
 want = batched.scan_records(Params(), rec, rna, eng)
