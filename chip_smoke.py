@@ -42,7 +42,13 @@ Phases, each printing one line with its seconds:
      per-segment shape, a short query, a packed batch, impure codes with a
      U query, a GA-rich row past 251, a NEAT1-length query, rows of 5 and
      40 columns) and the engine's per-segment call on the card against
-     the same call on a CPU engine;
+     the same call on a CPU engine; K8 sim_forward (cs and ct) on random
+     pairs (T = 3), planted homology (10% mutated), a run of N, a query
+     with non-ACGT bytes, m in {1, 7, 8, 31, 32, 33}, every rows-a-lane
+     instantiation at its strip edges, h19_F's group (H19 x testDNA's
+     segment, T = 2) and a NEAT1-length pair (N = 5,000), and
+     sim_forward_cells on h19_F's group at K1's thresholds against the
+     numpy mirror of the JAX package's host compaction;
   4. e2e     — in this process, every output file and stdout (except
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
@@ -58,9 +64,13 @@ Phases, each printing one line with its seconds:
      window_v1; no K1, K3 or K4), then meg3_full (K1, K3, K4) and h19_F
      (-F, K1) through the streaming
      driver (--tpu-stream on, FASIM_SPILL_DIR a fresh directory that must
-     be empty after the run); each CLI run must go through the driver its
-     flags pick; no run launches the long-query kernels window_general32
-     and window_keys;
+     be empty after the run), h19F_trunc and h19_F under
+     FASIM_SIM_DEVICE=1 (batched; K1 and K8) and h19_F under
+     --tpu-sim-device true --tpu-stream on (K1 and K8), with h19_F's
+     walls on the host SIM and on K8 printed; each CLI run must go
+     through the driver its flags pick; no run launches the long-query
+     kernels window_general32 and window_keys, and no run without the
+     switch launches K8;
   5. genome  — a synthetic genome (GENOME_MB = 34 Mb of random ACGT in
      5 Mb records with planted MEG3 homologies, about 34.4 MB, past the
      CLI's 32 MiB --tpu-stream auto threshold) with MEG3 through the CLI,
@@ -91,11 +101,13 @@ Phases, each printing one line with its seconds:
      plan and on the candidate plans, the cycles of its step against its
      rows a lane, at the packed-batch shape and on the per-segment rows
      at NEAT1 length, with each launched instantiation's step-loop SASS,
-     registers and resident warps an SM),
+     registers and resident warps an SM; K8 at h19_F's group and at
+     NEAT1 length by rows a lane, with its launches a run),
      each kernel's bound: the larger of the least integer operations its
-     cells need (scan_ops_per_cell, WINDOW_OPS_PER_CELL) over the card's
-     int32 rate (SMs x 64 lanes x the max SM clock) and its bytes over
-     3.35 TB/s, and every kernel's ptxas registers;
+     cells need (scan_ops_per_cell, WINDOW_OPS_PER_CELL,
+     SIM_OPS_PER_CELL) over the card's int32 rate (SMs x 64 lanes x the
+     max SM clock) and its bytes over 3.35 TB/s, and every kernel's
+     ptxas registers;
   7. trace   — the default meg3_full run through the CLI (K1, K3, K4;
      checked as phase 4 checks its runs, and the main path whose counts
      the report gives) under torch.profiler: the device time by kernel
@@ -168,6 +180,18 @@ class ScanKernel(NamedTuple):
     pairs_a_warp: int
     blocks: str
 
+
+# The least integer operations one cell of K8 (the SIM forward scan,
+# csrc/sim_forward.cu) needs on sm_90, counted at the INT32 rate.  A cell
+# keeps three (score, t) pairs, each one int64 key (score << 32) | t of two
+# 32-bit words: a max of two keys is 4 operations (a compare of the low
+# words, one of the high words with its carry, a select a word), a gap
+# step subtracts a multiple of 2^32 and is 1 (the high word only).  The
+# score 1 (a per-row table byte by the column's code); F 6 (two gap steps,
+# one max); diag + s 1 and the restart 4 (the compare of the high word, t
+# one add, a select a word); max with F 4; C = max(pre, D) 4; the next D 6
+# (two gap steps, one max).  The stores of cs and ct are the bytes term.
+SIM_OPS_PER_CELL = 1 + 6 + 5 + 4 + 4 + 6
 
 K1_SCAN = ScanKernel("K1", "scan_colmax_kernel", 1, "blocks_per_sm")
 K7_SCAN = ScanKernel("K7", "scan16_kernel", 2, "scan16_blocks_per_sm")
@@ -372,6 +396,17 @@ def switches(**env):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def kept_environment():
+    """Put the whole environment back as it was after the block."""
+    saved = dict(os.environ)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeError(msg)
@@ -397,6 +432,8 @@ class Smoke:
                              "fasim_tpu/kernels/tpu.py:1529"),
         "scan_codes_colmax": ("fasim_tpu_torch/csrc/scan_codes.cu",
                               "fasim_tpu/kernels/tpu.py:154"),
+        "sim_forward": ("fasim_tpu_torch/csrc/sim_forward.cu",
+                        "fasim_tpu/kernels/sim_dev.py:71"),
     }
 
     def __init__(self):
@@ -412,6 +449,7 @@ class Smoke:
         self.plain_ms = {}
         self.launches = {}
         self.walls = {}
+        self.counts = {}  # golden run -> its launch counts
         self.work = {}  # kernel -> (integer ops, bytes) of its timed call
 
     # -- helpers ---------------------------------------------------------
@@ -659,6 +697,7 @@ class Smoke:
         self.capture = self.capture_specs()
         self.spec_checks()
         self.k5_checks()
+        self.k8_checks()
 
     def window_checks(self, segs, lens, eng) -> None:
         """K3 and K6 on every width class, incl. rlens in (196, 256], of
@@ -1130,6 +1169,134 @@ class Smoke:
               f" cuda == cpu (max thresh {int(got[0].max())}, "
               f"{time.perf_counter() - t0:.1f} s)")
 
+    def k8_case(self, name: str, rna, refs, rows=None, timed=False):
+        """K8 sim_forward against its plain version on one query and T
+        references, exact on cs and ct; returns the device inputs (q, refs,
+        m) and, when `timed`, the plain version's milliseconds."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels.sim_dev import (encode, kernel_rows,
+                                                     sim_forward,
+                                                     sim_forward_ref)
+
+        q, r = encode(rna, refs)
+        qd = torch.from_numpy(q).to(self.dev)
+        rd = torch.from_numpy(r).to(self.dev)
+        m = len(rna)
+        got = sim_forward(qd, rd, m, rows=rows)
+        box = []
+        plain = self.cuda_ms(lambda: box.append(sim_forward_ref(qd, rd, m)),
+                             1, warm=False)
+        want = box[0]
+        self.compare("sim_forward", got[0], want[0], f"{name}: cs")
+        self.compare("sim_forward", got[1], want[1], f"{name}: ct")
+        print(f"  K8 sim_forward {name} (T={r.shape[0]} m={m} N={r.shape[1]},"
+              f" {rows or kernel_rows(m, r.shape[1], r.shape[0])} rows a "
+              "lane): exact"
+              + (f", plain {plain:.3f} ms" if timed else ""))
+        return (qd, rd, m), plain
+
+    def k8_checks(self) -> None:
+        """K8 against its plain version: random pairs, planted homology,
+        a run of N, a non-ACGT query, short queries, every instantiation
+        at its strip edges, h19_F's full group and a NEAT1-length pair;
+        sim_forward_cells on h19_F's group against the numpy mirror of the
+        JAX package's host compaction."""
+        np = self.np
+        from fasim_tpu_torch import rules
+        from fasim_tpu_torch.config import Params
+        from fasim_tpu_torch.io import fasta
+        from fasim_tpu_torch.kernels.sim_dev import (KERNEL_ROWS,
+                                                     sim_forward_cells)
+
+        def planted(rna, n):
+            ref = self.dna(n)
+            ql = min(len(rna), n) * 2 // 3
+            lo = int(self.rng.integers(0, n - ql + 1))
+            piece = rna[:ql].copy()
+            muts = self.rng.random(ql) < 0.1
+            piece[muts] = self.dna(int(muts.sum()))
+            ref[lo:lo + ql] = piece
+            return ref
+
+        self.k8_case("random pairs", self.dna(500),
+                     [self.dna(800) for _ in range(3)])
+        rna = self.dna(400)
+        self.k8_case("planted homology, 10% mutated", rna,
+                     [planted(rna, 900) for _ in range(2)])
+        nrun = planted(rna, 700)
+        nrun[200:330] = ord("N")
+        self.k8_case("a run of N", rna,
+                     [nrun, planted(rna, 700)[::-1].copy()])
+        rna_n = rna.copy()
+        rna_n[[5, 77, 301]] = np.frombuffer(b"NuR", np.uint8)
+        self.k8_case("non-ACGT query bytes", rna_n, [planted(rna, 600)])
+        for m in (1, 7, 8, 31, 32, 33):
+            self.k8_case(f"m={m}", self.dna(m),
+                         [self.dna(300) for _ in range(2)])
+        for rows in KERNEL_ROWS:
+            for m in (32 * rows, 32 * rows + 1, 96 * rows - 1):
+                rna = self.dna(m)
+                self.k8_case(f"strip edge m={m}", rna,
+                             [planted(rna, 200), self.dna(200)], rows=rows)
+        # h19_F's group: H19 x testDNA's one segment, the first two
+        # transforms (the driver's groups of 2 at this shape)
+        p = Params()
+        _, h19 = fasta.read_rna(os.path.join(ORACLE, "H19.fa"))
+        [rec] = fasta.read_dna(os.path.join(ORACLE, "testDNA.fa"))
+        [seg], _ = fasta.cut_sequence(rec.seq, p.cut_length,
+                                      p.overlap_length)
+        scans = rules.scan_list(p.rule, p.strand)
+        pairs = [rules.make_scan_strings(seg, sc) for sc in scans[:2]]
+        refs = [ref for ref, _ in pairs]
+        self.k8_h19, self.k8_plain_h19 = self.k8_case(
+            "h19_F group", h19, refs, timed=True)
+        _, neat1 = fasta.read_rna(os.path.join(ORACLE, "NEAT1.fa"))
+        require(len(neat1) == NEAT1_M, f"NEAT1 has {len(neat1)} nt")
+        self.k8_neat1, self.k8_plain_neat1 = self.k8_case(
+            "NEAT1 length", neat1, [planted(neat1, 5000)], timed=True)
+        # the qualifying cells of h19_F's group at the segment's real
+        # thresholds (K1's, as the driver reads them)
+        eng = self.engine(h19)
+        segs, lens = self.batch([seg], (len(seg) + 127) // 128 * 128)
+        gm = eng.scan_segments(segs, lens)[0].cpu().numpy()[0]
+        mins = [int(int(gm[k]) * 0.8) for k in range(2)]
+        got = sim_forward_cells(h19, refs, mins, self.dev)
+        self.k8_pair = (h19, *pairs[0], mins[0], scans[0], got[0])
+        want = self.cells_mirror(*self.k8_h19, mins)
+        for t, (g, w) in enumerate(zip(got, want)):
+            require(g.dtype == np.int32 and np.array_equal(g, w),
+                    f"sim_forward_cells pair {t} differs from the numpy "
+                    "mirror")
+        n_cells = self.k8_h19[1].shape[1] * len(h19)
+        print(f"  sim_forward_cells, h19_F group (min scores {mins}): equal "
+              f"to the numpy mirror, "
+              + ", ".join(f"{len(g)} cells ({len(g) / n_cells:.1%})"
+                          for g in got))
+
+    def cells_mirror(self, q, refs, m, mins):
+        """The JAX package's host compaction (fasim_tpu/kernels/sim_dev.py:
+        sim_forward_cells, after the scan) in numpy, on K8's (cs, ct)
+        laid out as JAX's [T, N, m]."""
+        np = self.np
+        from fasim_tpu_torch.kernels.sim_dev import sim_forward
+
+        cs, ct = sim_forward(q, refs, m)
+        cs = cs.cpu().numpy().transpose(0, 2, 1)
+        ct = ct.cpu().numpy().transpose(0, 2, 1)
+        n = refs.shape[1]
+        outs = []
+        for t in range(cs.shape[0]):
+            jj, ii = np.nonzero(cs[t] > int(mins[t]))
+            c = cs[t][jj, ii]
+            st = ct[t][jj, ii]
+            ci = st // (n + 2)
+            cj = st - ci * (n + 2)
+            cells = np.column_stack([c, ci, cj, ii + 1, jj + 1]) \
+                .astype(np.int32)
+            order = np.lexsort((cells[:, 4], cells[:, 3]))
+            outs.append(np.ascontiguousarray(cells[order]))
+        return outs
+
     def spec_codes(self, segs_c, lens_c, spec, rev):
         """Per width class: (W, codes, spec columns) on the card."""
         np = self.np
@@ -1261,7 +1428,8 @@ class Smoke:
 
     @staticmethod
     def wrappers() -> dict:
-        from fasim_tpu_torch.kernels import scan, scan_codes, window, window_v1
+        from fasim_tpu_torch.kernels import (scan, scan_codes, sim_dev, window,
+                                             window_v1)
 
         return {"scan_colmax": scan.scan_colmax,
                 "scan_colmax16": scan.scan_colmax16,
@@ -1270,7 +1438,8 @@ class Smoke:
                 "window_fwd": window.window_fwd,
                 "window_general": window.window_general,
                 "window_general32": window.window_general32,
-                "scan_codes_colmax": scan_codes.scan_codes_colmax}
+                "scan_codes_colmax": scan_codes.scan_codes_colmax,
+                "sim_forward": sim_dev.sim_forward}
 
     def reset_counts(self) -> None:
         for fn in self.wrappers().values():
@@ -1285,9 +1454,13 @@ class Smoke:
     LONG = ("window_general32", "window_keys")
     SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
     STREAM = ["--tpu-stream", "on"]
+    SIM_DEVICE = {"FASIM_SIM_DEVICE": "1"}
+    K8 = ("scan_colmax", "sim_forward")
     # (golden case, DNA, RNA, extra flags, driver, environment, kernels of
     # its path, kernels it must not launch, whether it is a main path whose
-    # counts the report gives)
+    # counts the report gives: True for all of its kernels, or a tuple of
+    # them).  A run launches sim_forward exactly when its kernels name it
+    # (golden_case).
     GOLDENS = (
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli", {}, K135,
          LONG, False),
@@ -1315,6 +1488,19 @@ class Smoke:
          LONG, False),
         ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40", *STREAM],
          "cli", {}, ("scan_colmax",), (), False),
+        # -F with the forward scan on K8 and the host replay: batched under
+        # the switch (h19_F's run is the report's K8 launches), streamed
+        # under the flag; the host SIM's h19_F runs come before and after
+        ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
+         SIM_DEVICE, K8, (), False),
+        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli",
+         SIM_DEVICE, K8, (), ("sim_forward",)),
+        ("h19_F", "testDNA.fa", "H19.fa",
+         ["-F", "-lg", "40", "--tpu-sim-device", "true", *STREAM], "cli", {},
+         K8, (), False),
+        # the host SIM batched, after the K8 runs (host, K8, K8, host)
+        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli", {},
+         ("scan_colmax",), (), False),
     )
     # the default MEG3-full run, the main path of K1, K3 and K4: phase 7
     # drives it under torch.profiler
@@ -1350,12 +1536,19 @@ class Smoke:
         """One entry of GOLDENS: its run against the golden with the counts
         set to 0 just before it and read just after, its kernels launched,
         those of `off` not, the driver its flags pick, no spill file left;
-        its wall kept, and its counts too where it is a main path."""
+        its wall kept, and its counts too where it is a main path.  Every
+        run without K8 in its kernels must not launch it.  The environment
+        is put back after the run (`--tpu-sim-device true` sets
+        FASIM_SIM_DEVICE=1 in the CLI's process)."""
+        if "sim_forward" not in kernels:
+            off = (*off, "sim_forward")
         stream = "--tpu-stream" in extra
         flags = "".join(f", {k}={v}" for k, v in env.items())
+        sim_dev = ", --tpu-sim-device true" if "--tpu-sim-device" in extra \
+            else ""
         run = (f"{case} ({driver}{', --tpu-stream on' if stream else ''}"
-               f"{flags}){note}")
-        with tempfile.TemporaryDirectory() as spill, \
+               f"{sim_dev}{flags}){note}")
+        with tempfile.TemporaryDirectory() as spill, kept_environment(), \
                 switches(**env, FASIM_SPILL_DIR=spill), \
                 self.driver_calls() as calls:
             self.reset_counts()
@@ -1375,12 +1568,18 @@ class Smoke:
             require(counts[k] == 0, f"{run}: kernel {k} was launched "
                     f"{counts[k]} times")
         self.walls[run] = wall
+        self.counts[run] = counts
         if main:
-            self.launches.update({k: counts[k] for k in kernels})
+            self.launches.update({k: counts[k] for k in
+                                  (kernels if main is True else main)})
 
     def phase_e2e(self) -> None:
         for entry in self.GOLDENS:
             self.golden_case(*entry)
+        h19 = {run: wall for run, wall in self.walls.items()
+               if run.startswith("h19_F ")}
+        print("  h19_F walls, host SIM and device forward scan (K8): "
+              + "; ".join(f"{run} {wall:.3f} s" for run, wall in h19.items()))
 
     # -- phase 5 ---------------------------------------------------------
 
@@ -1529,6 +1728,7 @@ sys.exit(rc)
         self.k1_times()
         self.window_times()
         self.k5_times()
+        self.k8_times()
         for name, regs in ptxas_registers().items():
             print(f"  ptxas registers {short_name(name)}: {regs}")
 
@@ -2005,6 +2205,64 @@ sys.exit(rc)
             *args, plan=p), 2) for p in self.K5_PLANS_NEAT1}
         print("  K5 at NEAT1 length by plan: " + ", ".join(
             f"{p} {t:.3f} ms" for p, t in times.items()))
+
+    def k8_times(self) -> None:
+        """K8 at h19_F's group shape and at NEAT1 length against its bound,
+        its plain version (timed in phase 3) and every instantiation; its
+        launches a run (phase 4).  phase_times prints its registers."""
+        from fasim_tpu_torch.kernels.sim_dev import (KERNEL_ROWS, kernel_rows,
+                                                     sim_forward)
+
+        for label, (q, refs, m), plain in (
+                ("h19_F group", self.k8_h19, self.k8_plain_h19),
+                ("NEAT1 length", self.k8_neat1, self.k8_plain_neat1)):
+            T, N = refs.shape
+            ms = self.cuda_ms(lambda: sim_forward(q, refs, m), 5)
+            cells = T * m * N
+            work = (SIM_OPS_PER_CELL * cells,
+                    8 * cells + 4 * q.numel() + 4 * refs.numel())
+            bound_ms, by = self.bound(*work)
+            if label == "h19_F group":
+                self.ms["sim_forward"] = ms
+                self.plain_ms["sim_forward"] = plain
+                self.work["sim_forward"] = work
+            rows = {r: self.cuda_ms(
+                lambda r=r: sim_forward(q, refs, m, rows=r), 3)
+                for r in KERNEL_ROWS}
+            print(f"  K8 sim_forward, {label} T={T} m={m} N={N}: kernel "
+                  f"{ms:.3f} ms at {kernel_rows(m, N, T)} rows a lane "
+                  f"({cells / ms / 1e6:.1f} G cells/s), plain {plain:.3f} "
+                  f"ms; bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.2%}"
+                  " of it; library: none; by rows a lane: "
+                  + ", ".join(f"{r} {t:.3f} ms" for r, t in rows.items()))
+        for run, counts in self.counts.items():
+            if counts["sim_forward"]:
+                print(f"  K8 launches, {run}: {counts['sim_forward']}")
+        self.k8_host_split()
+
+    def k8_host_split(self) -> None:
+        """What K8 takes off the host: one h19_F pair's exact SIM with its
+        own forward scan (native.sim_scan) against the replay of K8's
+        qualifying cells (native.sim_scan_replay), host clock, one
+        thread; the two must give the same rows."""
+        from fasim_tpu_torch import native
+        from fasim_tpu_torch.config import Params
+
+        p = Params()
+        rna, seq2, src, min_score, scan, cells = self.k8_pair
+        args = (rna.tobytes(), seq2.tobytes(), src.tobytes(), 0, min_score,
+                scan["strand"], scan["para"], p.nt_min, p.nt_max,
+                p.penalty_t, p.penalty_c)
+        t0 = time.perf_counter()
+        host = native.sim_scan(*args)
+        t1 = time.perf_counter()
+        replay = native.sim_scan_replay(*args, cells)
+        t2 = time.perf_counter()
+        require(replay == host and host, "h19_F pair 0: the replay of K8's "
+                "cells differs from the host SIM")
+        print(f"  h19_F pair 0 on the host (one thread): sim_scan "
+              f"{t1 - t0:.3f} s, sim_scan_replay of K8's {len(cells)} cells "
+              f"{t2 - t1:.3f} s, {len(host)} rows, equal")
 
     # -- phase 7 ---------------------------------------------------------
 

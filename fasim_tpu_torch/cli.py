@@ -19,10 +19,13 @@ The cuda and torch engines run the batched driver, or the streaming one
 (records read one at a time, hits in a columnar store whose alignment
 strings spill to FASIM_SPILL_DIR, default TMPDIR) under `--tpu-stream
 on`, and under `auto` (the default) when the DNA file is larger than
-32 MiB (`wants_stream`).  `-F` (exact SIM) runs on every engine.  Not
-ported yet (ROADMAP.md §1): the device SIM forward scan
-(--tpu-sim-device, FASIM_SIM_DEVICE=1) and more than one device
-(--tpu-dp-devices 2 or more; 0 and 1 run one engine on cuda:0).
+32 MiB (`wants_stream`).  `-F` (exact SIM) runs on every engine; with
+`--tpu-sim-device true` (or FASIM_SIM_DEVICE=1) the cuda and torch
+engines run its forward scan on their device (kernels/sim_dev.py: K8 on
+the card, its plain version on the CPU) and the host replays the
+qualifying cells; the numpy engine's per-segment path ignores the switch,
+as the JAX package's does.  Not ported yet (ROADMAP.md §1): more than one
+device (--tpu-dp-devices 2 or more; 0 and 1 run one engine on cuda:0).
 """
 
 from __future__ import annotations
@@ -124,7 +127,7 @@ def show_help() -> None:
           "(per-segment golden)\n"
           "other: --tpu-dp-devices 1  --tpu-segments-per-batch 64  "
           "--tpu-max-inflight 4  "
-          "--tpu-stream auto|on|off  "
+          "--tpu-stream auto|on|off  --tpu-sim-device true  "
           "--tpu-stdout-compat true  --tpu-profile true")
     sys.exit(1)
 
@@ -164,10 +167,8 @@ def main(argv: list[str] | None = None) -> int:
     from .scan.pipeline import scan_file
 
     p, tpu = parse_args(sys.argv[1:] if argv is None else argv)
-    if tpu.sim_device or os.environ.get("FASIM_SIM_DEVICE", "0") == "1":
-        sys.exit("--tpu-sim-device / FASIM_SIM_DEVICE=1 (the -F forward "
-                 "scan on the device) is not ported to fasim_tpu_torch yet "
-                 "(ROADMAP.md §1, item 5)")
+    if tpu.sim_device:
+        os.environ["FASIM_SIM_DEVICE"] = "1"
     if tpu.dp_devices >= 2:
         sys.exit(f"--tpu-dp-devices {tpu.dp_devices}: more than one GPU is "
                  "not ported to fasim_tpu_torch yet (ROADMAP.md §1, item 6);"

@@ -75,9 +75,10 @@ class TpuConfig:
     # batched driver, "auto" streams when the DNA file is larger than
     # 32 MiB (cli.wants_stream).
     stream: str = "auto"
-    # -F only: run the SIM forward scan on the device (fasim_tpu's
-    # kernels/sim_dev).  Not ported: the port's CLI refuses it, and env
-    # FASIM_SIM_DEVICE=1 too.
+    # -F only: run the SIM forward scan on the engine's device
+    # (kernels/sim_dev.py) and replay its qualifying cells on the host;
+    # the CLI sets FASIM_SIM_DEVICE=1, which the batched and streaming
+    # drivers read.
     sim_device: bool = False
 
 

@@ -56,6 +56,7 @@ SIGNATURES = {
     "fasim_window_v1": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                         _P],
     "fasim_window_keys": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
+    "fasim_sim_forward": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

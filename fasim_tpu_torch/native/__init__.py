@@ -4,8 +4,9 @@ Copy of fasim_tpu/native for the port.  `g++` builds this package's own
 sources into `build/native/libfasim_torch_native.so` beside the package
 at first use (rebuilt when a source is newer), so a process can load this
 library and the JAX package's side by side.  The JAX package's
-`lt_fastsim_segment` and `lt_sim_replay` (the device SIM replay) are not
-copied: the port's drivers do not call them."""
+`lt_fastsim_segment` is not copied: the port's drivers do not call it.
+`lt_sim_replay` (`sim_scan_replay`) replays the qualifying cells of the
+device SIM forward scan (kernels/sim_dev.py) through the host node list."""
 
 from __future__ import annotations
 
@@ -66,6 +67,12 @@ def _load():
             c.c_long, c.c_long, c.c_long, c.c_long, c.c_long, c.c_long,
             c.c_long, c.c_long, c.c_long, i32p, f32p, i64p, c.c_char_p,
             c.c_long]
+        lib.lt_sim_replay.restype = c.c_long
+        lib.lt_sim_replay.argtypes = [
+            c.c_char_p, c.c_long, c.c_char_p, c.c_long, c.c_char_p,
+            c.c_long, c.c_long, c.c_long, c.c_long, c.c_long, c.c_long,
+            c.c_long, c.c_long, i32p, c.c_long, c.c_long, i32p, f32p,
+            i64p, c.c_char_p, c.c_long]
         lib.lt_ssw_align.restype = c.c_long
         lib.lt_ssw_align.argtypes = [
             i32p, c.c_long, i32p, c.c_long, i32p, c.c_long, c.c_long,
@@ -195,6 +202,31 @@ def _sim_rows(n, ints, floats, stroffs, strbuf):
                     floats[3 * k + 1], floats[3 * k + 2],
                     raw[io:io + il].decode(), raw[jo:jo + jl].decode()))
     return out
+
+
+def sim_scan_replay(rna: bytes, dna_t: bytes, src: bytes,
+                    dna_start_pos: int, min_score: int, strand: int,
+                    para: int, nt_min: int, nt_max: int, penalty_t: int,
+                    penalty_c: int, cells: np.ndarray) -> list[tuple]:
+    """sim_scan with the forward scan replaced by a device-computed
+    qualifying-cell stream (kernels/sim_dev.py): cells int32[n, 5] =
+    (c, ci, cj, i, j) in scan order.  Output contract == sim_scan."""
+    lib = _load_sim()
+    cap = 64
+    strbuf_cap = 1 << 22
+    ints = np.empty(cap * 5, np.int32)
+    floats = np.empty(cap * 3, np.float32)
+    stroffs = np.empty(cap * 4, np.int64)
+    strbuf = ctypes.create_string_buffer(strbuf_cap)
+    cells = np.ascontiguousarray(cells.reshape(-1), np.int32)
+    n = lib.lt_sim_replay(rna, len(rna), dna_t, len(dna_t), src,
+                          dna_start_pos, min_score, strand, para, nt_min,
+                          nt_max, penalty_t, penalty_c, cells,
+                          len(cells) // 5, cap, ints, floats, stroffs,
+                          strbuf, strbuf_cap)
+    if n < 0:
+        raise RuntimeError("sim_scan_replay output buffer overflow")
+    return _sim_rows(n, ints, floats, stroffs, strbuf)
 
 
 def segment_peaks(cm_u8: np.ndarray, cm_stride: int, thresh: np.ndarray,

@@ -370,7 +370,8 @@ bool clears_all(const Node* list, long nnode, long m1, long mm, long n1,
 
 void run_sim(Engine& E, const std::string& src, long dna_start_pos,
              long strand, long para, long nt_min, long nt_max,
-             long penalty_t, long penalty_c, std::vector<Emit>& out) {
+             long penalty_t, long penalty_c, std::vector<Emit>& out,
+             const int32_t* cells = nullptr, long ncells = 0) {
     const char* A = E.A;
     const char* B = E.B;
     const long M = E.M, N = E.N, Q = E.Q, R = E.R;
@@ -388,6 +389,16 @@ void run_sim(Engine& E, const std::string& src, long dna_start_pos,
     auto& edgeg_sj = E.edgeg_sj;
 
     // ---- full forward scan with start propagation (sim.h:511-567) ----
+    // With a device-computed cell stream (kernels/sim_dev.py), the scan
+    // is skipped and add_node replays over the qualifying cells
+    // (score > min_score) in the same scan order — node-list state
+    // (creation order, eviction, bboxes) evolves identically.
+    if (cells) {
+        for (long z = 0; z < ncells; z++) {
+            const int32_t* c5 = cells + z * 5;
+            E.add_node(c5[0], c5[1], c5[2], c5[3], c5[4]);
+        }
+    } else {
     for (long j = 1; j <= N; j++) {
         col_score[j] = 0;
         col_si[j] = 0;
@@ -435,6 +446,7 @@ void run_sim(Engine& E, const std::string& src, long dna_start_pos,
             vgap_sj[j] = dj;
             if (c > E.min_score) E.add_node(c, ci, cj, i, j);
         }
+    }
     }
 
     // ---- best-first extraction with rectangle recomputation ----
@@ -766,15 +778,14 @@ void run_sim(Engine& E, const std::string& src, long dna_start_pos,
 
 extern "C" {
 
-// Run the exact engine on one (query, transformed ref, source ref) triple.
-// Outputs are parallel arrays; strings go into strbuf at stroffs[4*k..].
-// Returns the triplex count, or -1 if a buffer was too small.
-long lt_sim_scan(const char* rna, long M, const char* dnaT, long N,
-                 const char* src, long dna_start_pos, long min_score,
-                 long strand, long para, long nt_min, long nt_max,
-                 long penalty_t, long penalty_c, long cap, int32_t* ints,
-                 float* floats, int64_t* stroffs, char* strbuf,
-                 long strbuf_cap) {
+static long sim_scan_impl(const char* rna, long M, const char* dnaT, long N,
+                          const char* src, long dna_start_pos,
+                          long min_score, long strand, long para,
+                          long nt_min, long nt_max, long penalty_t,
+                          long penalty_c, long cap, int32_t* ints,
+                          float* floats, int64_t* stroffs, char* strbuf,
+                          long strbuf_cap, const int32_t* cells,
+                          long ncells) {
     Engine E;
     std::string qa, qb;
     qa.reserve(M + 1);
@@ -815,7 +826,7 @@ long lt_sim_scan(const char* rna, long M, const char* dnaT, long N,
     std::vector<Emit> out;
     std::string srcs(src, strlen(src));
     run_sim(E, srcs, dna_start_pos, strand, para, nt_min, nt_max, penalty_t,
-            penalty_c, out);
+            penalty_c, out, cells, ncells);
 
     if ((long)out.size() > cap) return -1;
     long soff = 0;
@@ -841,6 +852,37 @@ long lt_sim_scan(const char* rna, long M, const char* dnaT, long N,
         soff += t.rj.size();
     }
     return (long)out.size();
+}
+
+// Run the exact engine on one (query, transformed ref, source ref) triple.
+// Outputs are parallel arrays; strings go into strbuf at stroffs[4*k..].
+// Returns the triplex count, or -1 if a buffer was too small.
+long lt_sim_scan(const char* rna, long M, const char* dnaT, long N,
+                 const char* src, long dna_start_pos, long min_score,
+                 long strand, long para, long nt_min, long nt_max,
+                 long penalty_t, long penalty_c, long cap, int32_t* ints,
+                 float* floats, int64_t* stroffs, char* strbuf,
+                 long strbuf_cap) {
+    return sim_scan_impl(rna, M, dnaT, N, src, dna_start_pos, min_score,
+                         strand, para, nt_min, nt_max, penalty_t,
+                         penalty_c, cap, ints, floats, stroffs, strbuf,
+                         strbuf_cap, nullptr, 0);
+}
+
+// Device-assisted variant: the forward scan already ran on device
+// (kernels/sim_dev.py); cells = int32[ncells, 5] (c, ci, cj, i, j)
+// qualifying cells in scan order, replayed through add_node before the
+// extraction phase.  Output contract identical to lt_sim_scan.
+long lt_sim_replay(const char* rna, long M, const char* dnaT, long N,
+                   const char* src, long dna_start_pos, long min_score,
+                   long strand, long para, long nt_min, long nt_max,
+                   long penalty_t, long penalty_c, const int32_t* cells,
+                   long ncells, long cap, int32_t* ints, float* floats,
+                   int64_t* stroffs, char* strbuf, long strbuf_cap) {
+    return sim_scan_impl(rna, M, dnaT, N, src, dna_start_pos, min_score,
+                         strand, para, nt_min, nt_max, penalty_t,
+                         penalty_c, cap, ints, floats, stroffs, strbuf,
+                         strbuf_cap, cells, ncells);
 }
 
 }  // extern "C"

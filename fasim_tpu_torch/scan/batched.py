@@ -13,9 +13,11 @@ package's.  Differences from fasim_tpu.scan.batched:
   * no prewarm: CUDA kernels are not compiled per shape;
   * the packed candidates come back with one `.cpu()` of the pos / val
     slices after the counts, instead of `jax.device_get`;
-  * `-F` (exact SIM) fetches only the thresholds and runs the native SIM
-    per segment on the host; the device variant of its forward scan
-    (FASIM_SIM_DEVICE) is not ported;
+  * `-F` (exact SIM) fetches only the thresholds; under FASIM_SIM_DEVICE=1
+    the forward scan runs on the engine's device (kernels/sim_dev.py, K8
+    on a CUDA engine, its plain version on a CPU one), the qualifying
+    cells are picked out there, and each group's pairs replay on the SIM
+    pool in scan order (fasim_tpu replays them on its finalize thread);
   * the default CUDA stream of one device;
   * when the watchdog fires, the thread pools are shut down without
     waiting for the wedged thread, and its message names no checkpoint
@@ -50,6 +52,7 @@ import torch
 from .. import rules
 from ..config import BYTE_SAT, Params
 from ..io import fasta
+from ..kernels.sim_dev import sim_device_ok, sim_forward_cells
 from ..profiling import STAGES
 from .candidates import candidate_stage_batch
 from .pipeline import Triplex, _sim
@@ -132,33 +135,70 @@ class _ScanMeta:
 
 
 def _host_segment_stage(p: Params, rna: np.ndarray, meta: _ScanMeta,
-                        w: _Work, gm_row: np.ndarray) -> list[Triplex]:
+                        w: _Work, gm_row: np.ndarray,
+                        device: torch.device) -> list[Triplex]:
     """Exact SIM (-F) for one segment, all transforms, in the reference's
     transform order; only the thresholds gm_row are read.  Runs on a
-    worker thread.  (fasim_tpu's `_host_segment_stage` also serves the
-    fastSIM path of engines without window passes; every engine of the
-    port has them, so its fastSIM path is candidates.py.)"""
+    worker thread.  Under FASIM_SIM_DEVICE=1 the forward scans run on
+    `device`, the engine's (fasim_tpu/scan/batched.py:160-202).
+    (fasim_tpu's `_host_segment_stage` also serves the fastSIM path of
+    engines without window passes; every engine of the port has them, so
+    its fastSIM path is candidates.py.)"""
     with STAGES.timer("host_candidate_busy"):
         scans = meta.scans
         pairs = [rules.make_scan_strings(w.segment, s) for s in scans]
+        mins = [int(int(gm_row[k]) * 0.8) for k in range(len(scans))]
 
         # the 48 (segment, transform) pairs are fully independent (each
         # owns its node list / used-cell state, sim.h:410-1143); run
         # them across cores and concatenate in scan order — the
         # reference's iteration order, so output is bit-identical.
         # The reference runs this loop on one core (SURVEY §2.b).
-        def one(k):
+        def one(k, cells=None):
             scan = scans[k]
-            min_score = int(int(gm_row[k]) * 0.8)
             part: list[Triplex] = []
-            _sim(rna, pairs[k][0], pairs[k][1], w.start, min_score,
-                 scan["strand"], scan["para"], scan["rule"], p, part)
+            _sim(rna, pairs[k][0], pairs[k][1], w.start, mins[k],
+                 scan["strand"], scan["para"], scan["rule"], p, part,
+                 cells)
             return part
 
-        found: list[Triplex] = []
-        for part in _sim_pool().map(one, range(len(scans))):
-            found.extend(part)
-        return found
+        m, n = len(rna), len(w.segment)
+        if (os.environ.get("FASIM_SIM_DEVICE", "0") != "1"
+                or not sim_device_ok(m, n)):
+            found: list[Triplex] = []
+            for part in _sim_pool().map(one, range(len(scans))):
+                found.extend(part)
+            return found
+        return _device_sim(rna, pairs, mins, device, one)
+
+
+def _device_sim(rna: np.ndarray, pairs: list, mins: list[int], device,
+                one) -> list[Triplex]:
+    """The forward scans of one segment's pairs on `device`, in groups of
+    up to 8 whose (cs, ct) matrices stay near 256 MB; each pair's cells
+    replay through `one(k, cells)` on the SIM pool while the next groups
+    scan.  The cells of at most two pairs a pool thread (and two groups)
+    wait on the host."""
+    m, n = len(rna), len(pairs[0][0])
+    mp = (m + 7) // 8 * 8
+    tg = max(1, min(8, (256 << 20) // max(1, n * mp * 8)))
+    keep = max(2 * tg, 2 * (os.cpu_count() or 1))
+    found: list[Triplex] = []
+    pending: collections.deque = collections.deque()
+
+    def drain(keep: int) -> None:
+        while len(pending) > keep:
+            found.extend(pending.popleft().result())
+
+    for lo in range(0, len(pairs), tg):
+        grp = range(lo, min(lo + tg, len(pairs)))
+        cells = sim_forward_cells(rna, [pairs[k][0] for k in grp],
+                                  [mins[k] for k in grp], device)
+        pending.extend(_sim_pool().submit(one, k, c)
+                       for k, c in zip(grp, cells))
+        drain(keep)
+    drain(0)
+    return found
 
 
 def corenum_buckets(n: int) -> list[list[Triplex]]:
@@ -222,7 +262,8 @@ def _process_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
         # needs no rerun here
         with STAGES.timer("device_wait"):
             gm = _host(out[0])
-        return [(w, pool.submit(_host_segment_stage, p, rna, meta, w, gm[i]))
+        return [(w, pool.submit(_host_segment_stage, p, rna, meta, w, gm[i],
+                                eng.device))
                 for i, w in enumerate(batch)]
     thresh_dev, cm_dev = out[0], out[1]
     # the window passes reuse the batch's uploaded segment bytes

@@ -229,14 +229,19 @@ def _fast_sim_py(rna: np.ndarray, seq2: np.ndarray, src: np.ndarray,
 
 def _sim(rna: np.ndarray, seq2: np.ndarray, src: np.ndarray,
          dna_start_pos: int, min_score: int, strand: int, para: int,
-         rule: int, p: Params, out: list[Triplex]) -> None:
+         rule: int, p: Params, out: list[Triplex],
+         cells: np.ndarray | None = None) -> None:
     """SIM exact engine (sim.h:410-1143) via the native runtime; emits
-    Triplex records with the reference's field semantics."""
-    for (stari, endi, starj, endj, nt, score, identity, tri_score,
-         ri, rj) in native.sim_scan(
-            rna.tobytes(), seq2.tobytes(), src.tobytes(), dna_start_pos,
+    Triplex records with the reference's field semantics.  With `cells`,
+    the qualifying cells of a device forward scan (kernels/sim_dev.py),
+    the host replays them in place of its own forward scan."""
+    args = (rna.tobytes(), seq2.tobytes(), src.tobytes(), dna_start_pos,
             min_score, strand, para, p.nt_min, p.nt_max, p.penalty_t,
-            p.penalty_c):
+            p.penalty_c)
+    rows = (native.sim_scan(*args) if cells is None
+            else native.sim_scan_replay(*args, cells))
+    for (stari, endi, starj, endj, nt, score, identity, tri_score,
+         ri, rj) in rows:
         out.append(Triplex(
             stari=stari, endi=endi, starj=starj, endj=endj, strand=strand,
             reverse=para, rule=rule, nt=nt, score=f32(score),

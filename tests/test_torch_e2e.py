@@ -59,6 +59,24 @@ def test_port_cli_stream_byte_identical(tmp_path, case, f1, f2, extra):
     assert os.listdir(spill) == []
 
 
+@pytest.mark.parametrize("extra,env", [
+    ([], {"FASIM_SIM_DEVICE": "1"}),
+    (["--tpu-sim-device", "true"], {}),
+    (["--tpu-sim-device", "true", "--tpu-stream", "on"], {}),
+], ids=["switch", "flag", "flag-stream"])
+def test_port_cli_sim_device_byte_identical(tmp_path, extra, env):
+    """`-F` with the forward scan on the engine's device (K8's plain
+    version on the CPU) and the host replay: the golden byte for byte,
+    under FASIM_SIM_DEVICE=1, under --tpu-sim-device true, and under the
+    flag through the streaming driver."""
+    spill = tmp_path / "spill"
+    spill.mkdir()
+    _check_cli(tmp_path, "h19F_trunc", "testDNAt.fa", "H19t.fa",
+               ["-F", "-lg", "40", *extra],
+               dict(env, FASIM_SPILL_DIR=str(spill)))
+    assert os.listdir(spill) == []
+
+
 def _check_cli(tmp_path, case, f1, f2, extra, env):
     golden_dir = os.path.join(GOLDEN, case)
     shutil.copy(os.path.join(ORACLE, f1), tmp_path)

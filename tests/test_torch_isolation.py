@@ -2,8 +2,9 @@
 blocked at import, every module of `fasim_tpu_torch` and `chip_smoke`
 imports, and a scan, a window pass, the numpy_engine call, the
 per-segment pipeline, a `-F` scan, the streaming driver with its
-columnar store and a batched scan under FASIM_SCAN16=1 FASIM_WIN_V1=1 run
-on the CPU."""
+columnar store, a batched scan under FASIM_SCAN16=1 FASIM_WIN_V1=1 and a
+batched `-F` scan under FASIM_SIM_DEVICE=1 (the device forward scan of
+kernels/sim_dev.py and the native replay) run on the CPU."""
 
 import os
 import subprocess
@@ -106,6 +107,19 @@ eng16 = TorchScanEngine(rna, device="cpu")
 got = batched.scan_records(Params(), rec, rna, eng16)
 assert eng16.scan16 and eng16.win_v1
 assert want[0] and got == want, (len(got[0]), len(want[0]))
+# -F with the forward scan on the device (K8's plain version on the CPU)
+# and the native replay gives the host SIM's hits
+os.environ.update(FASIM_SCAN16="0", FASIM_WIN_V1="0")
+pf = Params(do_fast_sim=False)
+want_f = batched.scan_records(pf, rec, rna, eng)
+calls = []
+cells_fn = batched.sim_forward_cells
+batched.sim_forward_cells = lambda *a: calls.append(a[3]) or cells_fn(*a)
+os.environ["FASIM_SIM_DEVICE"] = "1"
+got_f = batched.scan_records(pf, rec, rna, eng)
+os.environ["FASIM_SIM_DEVICE"] = "0"
+assert calls and all(str(d) == "cpu" for d in calls), calls
+assert want_f[0] and got_f == want_f, (len(got_f[0]), len(want_f[0]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fasim_tpu"))
 assert not bad, bad
