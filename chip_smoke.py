@@ -71,7 +71,24 @@ Phases, each printing one line with its seconds:
      through the driver its flags pick; no run launches the long-query
      kernels window_general32 and window_keys, and no run without the
      switch launches K8;
-  5. genome  — a synthetic genome (GENOME_MB = 34 Mb of random ACGT in
+  5. multi   — multi-GPU and multi-host: MEG3-full through the
+     batched driver's round-robin over two engines (cuda:0 and
+     cuda:1 where device_count() >= 2, both on cuda:0 otherwise) and
+     through the CLI under --tpu-dp-devices 2 (min(2, device_count())
+     engines), h19_F (-F, FASIM_SIM_DEVICE=1) over two engines, each
+     byte-identical with the kernels of its path launched (K1, K3, K4;
+     K1, K8) and engine i dispatching batches i, i + n, ... of the run
+     (counted by wrapping the engines' dispatch, not by the global launch
+     counts); MEG3-full through two `python -m fasim_tpu_torch.dist.runner
+     --tpu-engine cuda` processes (rank r on card r mod device_count()
+     through CUDA_VISIBLE_DEVICES, gloo over loopback, a fresh
+     FASIM_CKPT): rank 0's files byte-identical, K1, K3 and K4 launched
+     in each rank, then the outputs wiped and the run repeated from the
+     checkpoint spills: the same bytes with no kernel launched; each
+     rank's local and gather seconds are printed; and
+     dist.dryrun.dryrun_multichip on the two devices (K1, K5 and K3
+     launched);
+  6. genome  — a synthetic genome (GENOME_MB = 34 Mb of random ACGT in
      5 Mb records with planted MEG3 homologies, about 34.4 MB, past the
      CLI's 32 MiB --tpu-stream auto threshold) with MEG3 through the CLI,
      each run in its own process: under auto (the streaming driver) and
@@ -80,7 +97,7 @@ Phases, each printing one line with its seconds:
      output files and stdout with TFOsorted rows; each run's wall, Mb/s,
      stage split (FASIM_PROFILE) and peak RSS (ru_maxrss of its process)
      are printed before the last lines;
-  6. times   — each kernel and its plain version at main-path shapes
+  7. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K1's ssw pass with its G
      cells/s, the SASS count of its step loop a cell (sass_loop), the
      integer ops/s that loop executes, the count of its column block
@@ -108,13 +125,13 @@ Phases, each printing one line with its seconds:
      SIM_OPS_PER_CELL) over the card's int32 rate (SMs x 64 lanes x the
      max SM clock) and its bytes over 3.35 TB/s, and every kernel's
      ptxas registers;
-  7. trace   — the default meg3_full run through the CLI (K1, K3, K4;
+  8. trace   — the default meg3_full run through the CLI (K1, K3, K4;
      checked as phase 4 checks its runs, and the main path whose counts
      the report gives) under torch.profiler: the device time by kernel
      and copy, and their sum against the wall; it fails if the profiler
      records no device event.
 
-Then the walls of phases 4, 5 and 7 with the card's name and power limit,
+Then the walls of phases 4, 5, 6 and 8 with the card's name and power limit,
 the card's line, one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
 so does a machine without a CUDA device.
@@ -196,7 +213,7 @@ SIM_OPS_PER_CELL = 1 + 6 + 5 + 4 + 4 + 6
 K1_SCAN = ScanKernel("K1", "scan_colmax_kernel", 1, "blocks_per_sm")
 K7_SCAN = ScanKernel("K7", "scan16_kernel", 2, "scan16_blocks_per_sm")
 
-# The synthetic genome of phase 5: 34 Mb of random ACGT, past the CLI's
+# The synthetic genome of phase 6: 34 Mb of random ACGT, past the CLI's
 # 32 MiB `--tpu-stream auto` threshold (about 34.4 MB on disk).
 GENOME_MB = 34
 GENOME_SEED = 0
@@ -542,7 +559,7 @@ class Smoke:
         _build.lib()
         print(f"built {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.1f} s")
-        # every kernel's registers are printed in phase 6; here the spills
+        # every kernel's registers are printed in phase 7; here the spills
         log = (_build.BUILD_DIR / "build.log").read_text()
         regs = ptxas_registers()
         entry = None
@@ -1364,7 +1381,8 @@ class Smoke:
     def scan_for(self, driver: str):
         """The scan callable of fasim_tpu_torch.cli.run for a driver other
         than the CLI's own: per-segment (scan/pipeline.scan_file with a
-        cuda engine) or batched with TorchScanEngine(use_v2=False)."""
+        cuda engine), the batched driver's round-robin over two engines
+        (multi_devices) or batched with TorchScanEngine(use_v2=False)."""
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
         from fasim_tpu_torch.scan.batched import scan_file_batched
         from fasim_tpu_torch.scan.pipeline import scan_file
@@ -1372,6 +1390,10 @@ class Smoke:
         if driver == "per-segment":
             return lambda p, rna: scan_file(
                 p, engine=TorchScanEngine(rna, device=self.dev))
+        if driver == "round-robin":
+            return lambda p, rna: scan_file_batched(
+                p, [TorchScanEngine(rna, device=d)
+                    for d in self.multi_devices()])
         require(driver == "batched-v1", f"unknown driver {driver}")
         return lambda p, rna: scan_file_batched(
             p, TorchScanEngine(rna, device=self.dev, use_v2=False))
@@ -1502,7 +1524,7 @@ class Smoke:
         ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli", {},
          ("scan_colmax",), (), False),
     )
-    # the default MEG3-full run, the main path of K1, K3 and K4: phase 7
+    # the default MEG3-full run, the main path of K1, K3 and K4: phase 8
     # drives it under torch.profiler
     MEG3_FULL = ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "cli", {}, K135,
                  LONG, True)
@@ -1582,6 +1604,211 @@ class Smoke:
               + "; ".join(f"{run} {wall:.3f} s" for run, wall in h19.items()))
 
     # -- phase 5 ---------------------------------------------------------
+
+    def multi_devices(self) -> list:
+        """The devices of the two-engine runs: cuda:0 and cuda:1, or both
+        on cuda:0 on a machine with one card."""
+        if self.torch.cuda.device_count() >= 2:
+            return ["cuda:0", "cuda:1"]
+        return ["cuda:0", "cuda:0"]
+
+    @staticmethod
+    @contextlib.contextmanager
+    def engine_batches(dispatch: str):
+        """In the block, every TorchScanEngine built and the batches each
+        one dispatched through `dispatch` (scan_segments_packed for
+        fastSIM, scan_segments for -F, whose escalation reruns with
+        full_prefix are not dispatches): yields a callable returning
+        [(device, batches)] in the order the engines were built, which is
+        the round-robin's."""
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+        made, batches = [], {}
+        init, call = TorchScanEngine.__init__, getattr(TorchScanEngine,
+                                                       dispatch)
+
+        def built(self, *args, **kw):
+            init(self, *args, **kw)
+            made.append(self)
+
+        def counted(self, *args, **kw):
+            if not kw.get("full_prefix"):
+                batches[id(self)] = batches.get(id(self), 0) + 1
+            return call(self, *args, **kw)
+
+        TorchScanEngine.__init__ = built
+        setattr(TorchScanEngine, dispatch, counted)
+        try:
+            yield lambda: [(str(e.device), batches.get(id(e), 0))
+                           for e in made]
+        finally:
+            TorchScanEngine.__init__ = init
+            setattr(TorchScanEngine, dispatch, call)
+
+    # (golden case, DNA, RNA, extra flags, driver, environment, kernels,
+    # kernels not launched, the engines' dispatch method, engines): the
+    # batched driver's round-robin; `--tpu-dp-devices 2` through the CLI
+    # builds min(2, device_count()) engines
+    MULTI = (
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "round-robin", {}, K135,
+         LONG, "scan_segments_packed", 2),
+        ("meg3_full", "meg3dna.fa", "MEG3.fa", ["--tpu-dp-devices", "2"],
+         "cli", {}, K135, LONG, "scan_segments_packed", None),
+        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "round-robin",
+         SIM_DEVICE, K8, (), "scan_segments", 2),
+    )
+
+    def phase_multi(self) -> None:
+        """Multi-GPU and multi-host on the card: MEG3-full through the
+        batched driver's round-robin over two engines (cuda:0 and cuda:1,
+        or both on cuda:0) and through the CLI under `--tpu-dp-devices 2`,
+        h19_F (-F) on K8 over two engines, each byte-identical with its
+        kernels launched and engine i dispatching batches i, i + n, ... of
+        the run; then
+        MEG3-full through two `fasim_tpu_torch.dist.runner` processes over
+        gloo (byte-identical, then again from the checkpoint spills with
+        no kernel launched), and dryrun_multichip on the two devices."""
+        torch = self.torch
+        print(f"  device_count() {torch.cuda.device_count()}, two-engine "
+              f"devices {self.multi_devices()}, on {self.smi}")
+        for (case, f1, f2, extra, driver, env, kernels, off, dispatch,
+             n) in self.MULTI:
+            with self.engine_batches(dispatch) as split:
+                self.golden_case(case, f1, f2, extra, driver, env, kernels,
+                                 off, False)
+                got = split()
+            n = n or min(2, torch.cuda.device_count())
+            total = sum(b for _, b in got)
+            want = [len(range(i, total, n)) for i in range(n)]
+            require(len(got) == n and [b for _, b in got] == want,
+                    f"{case} ({driver}, {extra}): engines and batches {got}, "
+                    f"want {n} engines with {want}")
+            print(f"    engines (device, batches): {got}")
+        self.runner_phase()
+        from fasim_tpu_torch.dist.dryrun import dryrun_multichip
+
+        self.reset_counts()
+        t0 = time.perf_counter()
+        print("  " + dryrun_multichip(self.multi_devices()))
+        counts = self.read_counts()
+        for k in self.DRYRUN_KERNELS:
+            require(counts[k] > 0, f"dryrun_multichip: kernel {k} was "
+                    "never launched")
+        print(f"    {time.perf_counter() - t0:.3f} s, launches {counts}")
+
+    # one dist.runner process, then on stderr its launch counts and its
+    # local and gather seconds
+    RUNNER_RUN = """
+import json
+import sys
+
+import chip_smoke
+from fasim_tpu_torch.dist import runner
+
+rc = runner.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({k: fn.launches for k, fn in
+                                chip_smoke.Smoke.wrappers().items()}),
+      file=sys.stderr)
+print("SECONDS " + json.dumps({"local": runner.LAST_LOCAL_SECONDS,
+                               "gather": runner.LAST_GATHER_SECONDS}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+    RUNNER_TIMEOUT_S = 300
+    # (golden case, DNA, RNA) of the runner's processes
+    RUNNER_CASE = ("meg3_full", "meg3dna.fa", "MEG3.fa")
+    # the dry run's scans (K1), sharded step (K5) and forward windows (K3)
+    DRYRUN_KERNELS = ("scan_colmax", "scan_codes_colmax", "window_fwd")
+
+    def runner_phase(self) -> None:
+        """MEG3-full through two runner processes (rank r on the card r
+        mod device_count() via CUDA_VISIBLE_DEVICES, gloo over loopback, a
+        fresh FASIM_CKPT): rank 0's files byte-identical to the golden,
+        K1, K3 and K4 launched in each; then the outputs wiped and the
+        run repeated from the spills: the same bytes, no kernel launched."""
+        import filecmp
+        import socket
+
+        case, f1, f2 = self.RUNNER_CASE
+        golden = os.path.join(ORACLE, "golden", case)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        cards = (visible.split(",") if visible else
+                 [str(i) for i in range(self.torch.cuda.device_count())])
+        with tempfile.TemporaryDirectory() as tmp:
+            for f in (f1, f2):
+                shutil.copy(os.path.join(ORACLE, f), tmp)
+            out = os.path.join(tmp, "out")
+            os.mkdir(out)
+            ckpt = os.path.join(tmp, "ckpt")
+            for rerun in (False, True):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                run = (f"{case} (dist.runner, 2 processes"
+                       + (", from the spills)" if rerun else ")"))
+                t0 = time.perf_counter()
+                procs = []
+                for rank in range(2):
+                    env = dict(os.environ, PYTHONPATH=REPO,
+                               CUDA_VISIBLE_DEVICES=cards[rank % len(cards)],
+                               FASIM_COORD=f"127.0.0.1:{port}",
+                               FASIM_NPROC="2", FASIM_PID=str(rank),
+                               FASIM_CKPT=ckpt, GLOO_SOCKET_IFNAME="lo")
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", self.RUNNER_RUN, "-f1", f1,
+                         "-f2", f2, "-O", "out/", "--tpu-engine", "cuda"],
+                        cwd=tmp, env=env,
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True))
+                try:
+                    outs = [pr.communicate(timeout=self.RUNNER_TIMEOUT_S)
+                            for pr in procs]
+                finally:
+                    for pr in procs:
+                        if pr.poll() is None:
+                            pr.kill()
+                            pr.wait()
+                wall = time.perf_counter() - t0
+                for rank, (pr, (stdout, stderr)) in enumerate(
+                        zip(procs, outs)):
+                    require(pr.returncode == 0, f"{run}: rank {rank} exit "
+                            f"{pr.returncode}: {stderr[-3000:]}")
+                tags = [{ln.partition(" ")[0]: json.loads(
+                    ln.partition(" ")[2]) for ln in err.splitlines()
+                    if ln.startswith(("LAUNCHES ", "SECONDS "))}
+                    for _, err in outs]
+                require("finished normally" in outs[0][0],
+                        f"{run}: rank 0 did not finish normally")
+                names = sorted(os.listdir(out))
+                expected = sorted(f for f in os.listdir(golden)
+                                  if not f.startswith("stdout"))
+                require(names == expected, f"{run}: files {names}")
+                for name in names:
+                    require(filecmp.cmp(os.path.join(out, name),
+                                        os.path.join(golden, name),
+                                        shallow=False),
+                            f"{run}: {name} differs from the golden")
+                for rank, tag in enumerate(tags):
+                    counts = tag["LAUNCHES"]
+                    if rerun:
+                        require(not any(counts.values()),
+                                f"{run}: rank {rank} launched {counts}")
+                    else:
+                        for k in self.K135:
+                            require(counts[k] > 0, f"{run}: rank {rank} "
+                                    f"never launched {k}")
+                    print(f"  {run}: rank {rank} on card "
+                          f"{cards[rank % len(cards)]}: local "
+                          f"{tag['SECONDS']['local']:.3f} s, gather "
+                          f"{tag['SECONDS']['gather']:.3f} s, launches "
+                          f"{counts}")
+                print(f"  {run}: byte-identical, wall {wall:.3f} s")
+                self.walls[run] = wall
+                for name in names:
+                    os.unlink(os.path.join(out, name))
+                require(os.listdir(ckpt), f"{run}: no checkpoint spill")
+
+    # -- phase 6 ---------------------------------------------------------
 
     # one CLI run in its own process, then on stderr the launch counts of
     # its kernels, the drivers it ran and its peak resident set (Linux:
@@ -1722,7 +1949,7 @@ sys.exit(rc)
         print("  " + self.genome[-1])
         return stdout.splitlines()
 
-    # -- phase 6 ---------------------------------------------------------
+    # -- phase 7 ---------------------------------------------------------
 
     def phase_times(self) -> None:
         self.k1_times()
@@ -2264,7 +2491,7 @@ sys.exit(rc)
               f"{t1 - t0:.3f} s, sim_scan_replay of K8's {len(cells)} cells "
               f"{t2 - t1:.3f} s, {len(host)} rows, equal")
 
-    # -- phase 7 ---------------------------------------------------------
+    # -- phase 8 ---------------------------------------------------------
 
     def phase_trace(self) -> None:
         """The default MEG3-full run through the CLI (MEG3_FULL, checked as
@@ -2321,7 +2548,8 @@ sys.exit(rc)
         return {"kernels": out}
 
 
-PHASES = ("device", "build", "kernels", "e2e", "genome", "times", "trace")
+PHASES = ("device", "build", "kernels", "e2e", "multi", "genome", "times",
+          "trace")
 
 
 def main() -> int:

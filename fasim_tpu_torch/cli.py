@@ -9,9 +9,12 @@ post.output.print_result, so files and stdout are byte-identical to the
 JAX package's.  Framework flags keep the JAX package's --tpu- prefix.
 `--tpu-engine` picks the engine:
 
-  * cuda (default; auto means cuda): TorchScanEngine on cuda:0 with the
-    hand-written kernels; raises when torch.cuda.is_available() is false;
-  * torch: TorchScanEngine on the CPU with the kernels' plain versions;
+  * cuda (default; auto means cuda): one TorchScanEngine a CUDA device
+    this process sees, with the hand-written kernels (`--tpu-dp-devices
+    N` > 0: the first N of them; CUDA_VISIBLE_DEVICES splits the cards
+    between processes); raises when torch.cuda.is_available() is false;
+  * torch: max(1, N) TorchScanEngines on the CPU with the kernels' plain
+    versions;
   * numpy: the per-segment path (scan/pipeline.py) with the NumPy golden
     engine (kernels/batch_np.py).
 
@@ -19,13 +22,14 @@ The cuda and torch engines run the batched driver, or the streaming one
 (records read one at a time, hits in a columnar store whose alignment
 strings spill to FASIM_SPILL_DIR, default TMPDIR) under `--tpu-stream
 on`, and under `auto` (the default) when the DNA file is larger than
-32 MiB (`wants_stream`).  `-F` (exact SIM) runs on every engine; with
+32 MiB (`wants_stream`); both round-robin the batches over the engines
+(fasim_tpu/cli.py:118-149).  `-F` (exact SIM) runs on every engine; with
 `--tpu-sim-device true` (or FASIM_SIM_DEVICE=1) the cuda and torch
 engines run its forward scan on their device (kernels/sim_dev.py: K8 on
 the card, its plain version on the CPU) and the host replays the
 qualifying cells; the numpy engine's per-segment path ignores the switch,
-as the JAX package's does.  Not ported yet (ROADMAP.md §1): more than one
-device (--tpu-dp-devices 2 or more; 0 and 1 run one engine on cuda:0).
+as the JAX package's does.  More than one host: `python -m
+fasim_tpu_torch.dist.runner` with the same flags.
 """
 
 from __future__ import annotations
@@ -125,7 +129,8 @@ def show_help() -> None:
           "[-ds 15] [-lg 50] [-F] [-C N]\n"
           "engine: --tpu-engine cuda (default) | torch (CPU) | numpy "
           "(per-segment golden)\n"
-          "other: --tpu-dp-devices 1  --tpu-segments-per-batch 64  "
+          "other: --tpu-dp-devices N (0: every GPU)  "
+          "--tpu-segments-per-batch 64  "
           "--tpu-max-inflight 4  "
           "--tpu-stream auto|on|off  --tpu-sim-device true  "
           "--tpu-stdout-compat true  --tpu-profile true")
@@ -133,7 +138,11 @@ def show_help() -> None:
 
 
 def make_engine(tpu: TpuConfig, rna: np.ndarray):
-    """The engine for `--tpu-engine`, or None for the NumPy golden path."""
+    """The engines for `--tpu-engine`, one a device, for the drivers'
+    round-robin (fasim_tpu/cli.py:make_engine), or None for the NumPy
+    golden path.  cuda: cuda:0 to cuda:k-1, k the devices this process
+    sees, or at most `--tpu-dp-devices` N when N > 0; torch: max(1, N)
+    engines on the CPU."""
     from .kernels.engine import TorchScanEngine
 
     which = tpu.engine
@@ -142,9 +151,13 @@ def make_engine(tpu: TpuConfig, rna: np.ndarray):
             raise RuntimeError("--tpu-engine cuda: no CUDA device "
                                "(torch.cuda.is_available() is false); use "
                                "--tpu-engine torch for the CPU")
-        return TorchScanEngine(rna, device="cuda:0")
+        k = torch.cuda.device_count()
+        if tpu.dp_devices > 0:
+            k = min(k, tpu.dp_devices)
+        return [TorchScanEngine(rna, device=f"cuda:{i}") for i in range(k)]
     if which == "torch":
-        return TorchScanEngine(rna, device="cpu")
+        return [TorchScanEngine(rna, device="cpu")
+                for _ in range(max(1, tpu.dp_devices))]
     if which == "numpy":
         return None
     sys.exit(f"unknown engine {which!r} (cuda|torch|numpy)")
@@ -169,10 +182,6 @@ def main(argv: list[str] | None = None) -> int:
     p, tpu = parse_args(sys.argv[1:] if argv is None else argv)
     if tpu.sim_device:
         os.environ["FASIM_SIM_DEVICE"] = "1"
-    if tpu.dp_devices >= 2:
-        sys.exit(f"--tpu-dp-devices {tpu.dp_devices}: more than one GPU is "
-                 "not ported to fasim_tpu_torch yet (ROADMAP.md §1, item 6);"
-                 " 0 and 1 run one engine on cuda:0")
 
     def scan(p: Params, rna: np.ndarray):
         engine = make_engine(tpu, rna)

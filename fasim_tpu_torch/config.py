@@ -54,17 +54,16 @@ class TpuConfig:
     engine: str = "auto"
     # Number of DNA segments processed per kernel launch (batch dim).
     segments_per_batch: int = 64
-    # Devices to spread the batches over (fasim_tpu's data-parallel axis,
-    # where 0 means every local device).  The port runs one engine on
-    # cuda:0: 0 and 1 run so, and the CLI refuses 2 or more (more than one
-    # GPU is not ported yet).
+    # Devices to spread the batches over (fasim_tpu's data-parallel axis):
+    # one engine a device, batches round-robin over them.  cuda: the first
+    # N devices this process sees, 0 = every one; torch: max(1, N) CPU
+    # engines.
     dp_devices: int = 0
     # Print the per-stage wall-clock split on stderr after the run.
     profile: bool = False
-    # Max device batches in flight (bounds host+device memory at genome
-    # scale); 0 = dispatch everything up front.  More in-flight batches
-    # add stage threads that contend with the native finalize pool for
-    # host cores.
+    # Max device batches in flight per engine (bounds host+device memory
+    # at genome scale); at least 2.  More in-flight batches add stage
+    # threads that contend with the native finalize pool for host cores.
     max_inflight: int = 4
     # Reproduce the reference's stdout progress lines (lncName,
     # "dnaPos = N" per segment, the print_cluster level-quirk lines and

@@ -5,8 +5,9 @@ kernels/xla.py:XlaScanEngine, with the same methods: the batched driver
 and the candidate stage (scan/candidates.py) call `scan_segments*` and
 `window_pass*`, the per-segment pipeline (scan/pipeline.py) calls the
 engine itself with the `numpy_engine` contract (`__call__`, built on
-`colmax_batch` / `max_batch`).  The engine owns its tables (the state
-`state()` / `load_state()` carry):
+`colmax_batch` / `max_batch`, which copy `colmax_dev`'s column maxima
+to the host; dist.scan_step keeps them on the device).  The engine owns
+its tables (the state `state()` / `load_state()` carry):
 
   * lut_s / lut_t uint8[T, 256], is_tr bool[T]: composed rule-transform
     o encoder LUTs (window gather, v1 scan code rows);
@@ -307,7 +308,9 @@ class TorchScanEngine:
 
     # -- the numpy_engine contract (per-segment pipeline) --------------------
 
-    def _colmax_dev(self, codes, which: str) -> torch.Tensor:
+    def colmax_dev(self, codes, which: str) -> torch.Tensor:
+        """colmax_batch's column maxima int32[S, T, N], left on the
+        engine's device (dist.scan_step)."""
         if which not in ("ssw", "thresh"):
             raise ValueError(f"unknown alphabet {which!r} (ssw|thresh)")
         return scan_codes_colmax(self._to_dev(codes, torch.uint8),
@@ -318,12 +321,12 @@ class TorchScanEngine:
         """Engine codes int[S, T, N] of alphabet `which` (ssw | thresh; a
         ragged batch pads with an out-of-alphabet code) -> exact column
         maxima int32[S, T, N] on the host, through K5."""
-        return self._colmax_dev(codes, which).cpu().numpy()
+        return self.colmax_dev(codes, which).cpu().numpy()
 
     def max_batch(self, codes, which: str) -> np.ndarray:
         """Engine codes int[S, T, N] -> exact global SW max int32[S, T]
         (the column maxima are exact everywhere: no escalation rerun)."""
-        return self._colmax_dev(codes, which).amax(-1).cpu().numpy()
+        return self.colmax_dev(codes, which).amax(-1).cpu().numpy()
 
     def __call__(self, rna: np.ndarray, seq2_list: list[np.ndarray]
                  ) -> tuple[np.ndarray, np.ndarray]:

@@ -11,6 +11,8 @@ scan/candidates.py, so the output is byte-identical to the JAX
 package's.  Differences from fasim_tpu.scan.batched:
 
   * no prewarm: CUDA kernels are not compiled per shape;
+  * `max_inflight` 0 or less means 2 batches an engine, not "dispatch
+    everything up front";
   * the packed candidates come back with one `.cpu()` of the pos / val
     slices after the counts, instead of `jax.device_get`;
   * `-F` (exact SIM) fetches only the thresholds; under FASIM_SIM_DEVICE=1
@@ -18,23 +20,27 @@ package's.  Differences from fasim_tpu.scan.batched:
     on a CUDA engine, its plain version on a CPU one), the qualifying
     cells are picked out there, and each group's pairs replay on the SIM
     pool in scan order (fasim_tpu replays them on its finalize thread);
-  * the default CUDA stream of one device;
+  * each engine runs on its device's current CUDA stream;
   * when the watchdog fires, the thread pools are shut down without
     waiting for the wedged thread, and its message names no checkpoint
-    (the port has none);
+    (only dist/runner.py keeps one);
   * no opt-in mmap threshold pin (FASIM_MMAP_PIN): the JAX package
     measured it at peak RSS 3142 -> 2995 MB for +54% wall, and nothing
     here turns it on;
   * `scan_file_stream` closes its store (and removes its spill file) when
     the scan raises.
 
-Batches are dispatched up to `max_inflight` ahead; one stage thread per
-in-flight batch waits for its device results and runs the candidate
-stage, and the host finalize runs on a thread pool.  Results are yielded
-in input order, so the output does not depend on the window or thread
-counts.  `scan_file_batched` reads every record first and returns a
-Triplex list; `scan_file_stream` reads one record at a time and returns
-a columnar `post.store.TriplexStore`, for genome-scale inputs.
+`engine` is one TorchScanEngine or a list of them, one a device (the
+JAX package's per-device engines): batch k goes to engine k mod the
+count.  Segments are independent, so no collective is needed.  Batches
+are dispatched up to `max_inflight` an engine ahead; one stage thread
+per in-flight batch waits for its device results on its batch's engine
+and runs the candidate stage, and the host finalize runs on a thread
+pool.  Results are yielded in input order, so the output does not
+depend on the engine count, the window or the thread counts.
+`scan_file_batched` reads every record first and returns a Triplex
+list; `scan_file_stream` reads one record at a time and returns a
+columnar `post.store.TriplexStore`, for genome-scale inputs.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ class _Work:
     record_idx: int
     start: int  # dnaStartPos of the segment within the record
     segment: np.ndarray
+    gidx: int = -1  # global work index (distributed sharding/merge key)
 
 
 def enumerate_work(p: Params, records) -> tuple[list[_Work], list[dict]]:
@@ -321,18 +328,27 @@ class WatchdogError(RuntimeError):
     FASIM_WATCHDOG_S: its thread is wedged and never returns."""
 
 
+def _engines(engine) -> list:
+    """One engine or a list of per-device engines -> the list."""
+    return list(engine) if isinstance(engine, (list, tuple)) else [engine]
+
+
 def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
                    engine, n_pad: int, batch_pairs: int = 64,
                    host_threads: int = 0, max_inflight: int = 4):
     """Streaming scan core: consume a work iterator, keep at most
-    `max_inflight` device batches in flight, yield (work item, hits) in
-    input order.  `engine` is one TorchScanEngine."""
-    engine.setup_scans(scans)
-    if p.do_fast_sim:
-        engine.setup_windows(rna)
+    `max_inflight` device batches in flight per engine, yield (work item,
+    hits) in input order.  `engine` is one TorchScanEngine or a list of
+    them (one a device); batch k goes to engine k mod the count
+    (fasim_tpu/scan/batched.py:436-447)."""
+    engines = _engines(engine)
+    for eng in engines:
+        eng.setup_scans(scans)
+        if p.do_fast_sim:
+            eng.setup_windows(rna)
     if host_threads <= 0:
         host_threads = min(32, os.cpu_count() or 1)
-    max_inflight = max(max_inflight, 2)
+    max_inflight = max(max_inflight, 2) * len(engines)
     host_backlog = min(2 * max_inflight, 256)
     meta = _ScanMeta(scans)
     q_idx = np.ascontiguousarray(rules.SSW_ENC[rna], np.int32)
@@ -341,8 +357,8 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
     done: collections.deque = collections.deque()
     pool = ThreadPoolExecutor(max_workers=host_threads)
     # one stage thread per in-flight batch: a batch's window passes and
-    # transfers overlap the next batches' scans
-    stages = ThreadPoolExecutor(max_workers=max_inflight)
+    # transfers overlap the next batches' scans (capped as in fasim_tpu)
+    stages = ThreadPoolExecutor(max_workers=max(2, min(64, max_inflight)))
     # Watchdog: cap every blocking wait so that a wedged batch surfaces as
     # a clear error instead of an indefinite hang.  Kernel launches are
     # asynchronous, so a hung kernel blocks the `.cpu()` read-back in a
@@ -370,20 +386,21 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
                     hits = _result(fut, "a host finalize task")
                 yield w0, hits
 
-    def dispatch(batch: list[_Work]) -> None:
+    def dispatch(batch: list[_Work], k: int) -> None:
         segs = np.zeros((len(batch), n_pad), np.uint8)
         lengths = np.zeros(len(batch), np.int32)
         for i, w in enumerate(batch):
             segs[i, :len(w.segment)] = w.segment
             lengths[i] = len(w.segment)
+        eng = engines[k % len(engines)]
         with STAGES.timer("device_dispatch"):
             if p.do_fast_sim:
-                out = engine.scan_segments_packed(segs, lengths)
+                out = eng.scan_segments_packed(segs, lengths)
             else:
-                out = engine.scan_segments(segs, lengths)
+                out = eng.scan_segments(segs, lengths)
         inflight.append(stages.submit(
             _process_batch, p, rna, q_idx, rna_b, meta, batch, segs,
-            lengths, engine, out, pool))
+            lengths, eng, out, pool))
 
     try:
         nbatch = 0
@@ -395,7 +412,7 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
             if len(inflight) >= max_inflight:
                 done.append(inflight.popleft())
             yield from drain_done(min_keep=host_backlog)
-            dispatch(batch)
+            dispatch(batch, nbatch)
             nbatch += 1
             # return free heap to the OS every few batches (the arena cap
             # is applied at module import)
@@ -405,7 +422,7 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
         if batch:
             if len(inflight) >= max_inflight:
                 done.append(inflight.popleft())
-            dispatch(batch)
+            dispatch(batch, nbatch)
         done.extend(inflight)
         inflight.clear()
         yield from drain_done(min_keep=0)
@@ -419,9 +436,12 @@ def scan_work(p: Params, rna: np.ndarray, work: list[_Work],
               scans: list[dict], engine, batch_pairs: int = 64,
               host_threads: int = 0, max_inflight: int = 4
               ) -> list[tuple[_Work, list]]:
-    """Scan an explicit work list; (work item, hits) pairs in its order."""
+    """Scan an explicit work list; (work item, hits) pairs in its order.
+    This is the shard-level entry of a caller that picks its own subset
+    of the segments."""
     if not work:
-        engine.setup_scans(scans)
+        for eng in _engines(engine):
+            eng.setup_scans(scans)
         return []
     n_max = max(len(w.segment) for w in work)
     n_pad = (n_max + 127) // 128 * 128

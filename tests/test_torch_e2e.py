@@ -173,11 +173,14 @@ def test_tpu_kernel_flags_are_unknown(flag):
 
 @pytest.mark.parametrize("n", [0, 1, 2])
 def test_tpu_dp_devices_flag(n, monkeypatch, tmp_path):
-    """--tpu-dp-devices, a flag of the reference's help (fasim_tpu/cli.py):
-    0 and 1 run the batched driver on one engine on cuda:0, as without the
-    flag; 2 or more exit with a message (more than one GPU is not ported).
-    The engine and the driver are stand-ins: nothing is scanned; the empty
-    DNA file is there for `--tpu-stream auto` to read its size."""
+    """--tpu-dp-devices N, a flag of the reference's help (fasim_tpu/cli.py):
+    the CLI builds one engine a device and hands the list to the batched
+    driver, which round-robins its batches over them.  cuda: the first N
+    devices this process sees, 0 meaning every one (two with a patched
+    device_count; one on a box with one card, as the JAX package's
+    devices[:N]); torch: max(1, N) engines on the CPU.  The engine and
+    the driver are stand-ins: nothing is scanned; the empty DNA file is
+    there for `--tpu-stream auto` to read its size."""
     from fasim_tpu_torch import cli
     from fasim_tpu_torch.kernels import engine as engine_mod
     from fasim_tpu_torch.scan import batched
@@ -198,20 +201,23 @@ def test_tpu_dp_devices_flag(n, monkeypatch, tmp_path):
     monkeypatch.setattr(batched, "scan_file_batched",
                         lambda p, eng, **kw: driven.append(eng))
     monkeypatch.setattr(cli, "run", lambda p, tpu, scan: scan(p, None) or 0)
-    if n >= 2:
-        with pytest.raises(SystemExit, match="more than one GPU"):
-            cli.main(argv)
-        assert made == [] and driven == []
-    else:
-        assert cli.main(argv) == 0
-        assert made == ["cuda:0"] and len(driven) == 1
+    for cards, engine, want in (
+            (2, "cuda", ["cuda:0", "cuda:1"][:n or 2]),
+            (1, "cuda", ["cuda:0"]),
+            (2, "torch", ["cpu"] * max(1, n))):
+        made.clear()
+        driven.clear()
+        monkeypatch.setattr(cli.torch.cuda, "device_count", lambda: cards)
+        assert cli.main([*argv, "--tpu-engine", engine]) == 0
+        assert made == want, (cards, engine)
+        assert len(driven) == 1 and len(driven[0]) == len(want)
 
 
 def test_torch_engine_is_cpu():
     from fasim_tpu_torch import cli
     from fasim_tpu_torch.config import TpuConfig
 
-    eng = cli.make_engine(TpuConfig(engine="torch"),
-                          np.frombuffer(b"ACGT", np.uint8).copy())
+    [eng] = cli.make_engine(TpuConfig(engine="torch"),
+                            np.frombuffer(b"ACGT", np.uint8).copy())
     assert eng.device.type == "cpu"
     assert cli.make_engine(TpuConfig(engine="numpy"), None) is None

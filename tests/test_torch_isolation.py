@@ -2,9 +2,11 @@
 blocked at import, every module of `fasim_tpu_torch` and `chip_smoke`
 imports, and a scan, a window pass, the numpy_engine call, the
 per-segment pipeline, a `-F` scan, the streaming driver with its
-columnar store, a batched scan under FASIM_SCAN16=1 FASIM_WIN_V1=1 and a
+columnar store, a batched scan under FASIM_SCAN16=1 FASIM_WIN_V1=1, a
 batched `-F` scan under FASIM_SIM_DEVICE=1 (the device forward scan of
-kernels/sim_dev.py and the native replay) run on the CPU."""
+kernels/sim_dev.py and the native replay), the round-robin over two
+engines, the sharded scan step of `dist` and the runner's spill loader
+(`dist/runner.py`) run on the CPU."""
 
 import os
 import subprocess
@@ -120,6 +122,28 @@ got_f = batched.scan_records(pf, rec, rna, eng)
 os.environ["FASIM_SIM_DEVICE"] = "0"
 assert calls and all(str(d) == "cpu" for d in calls), calls
 assert want_f[0] and got_f == want_f, (len(got_f[0]), len(want_f[0]))
+# multi-device: dist, its runner and dry run import; the round-robin
+# over two engines gives one engine's hits; the sharded step and the
+# runner's payload loader run
+import pickle
+
+from fasim_tpu_torch import dist
+from fasim_tpu_torch.dist import dryrun, runner
+
+assert {"fasim_tpu_torch.dist", "fasim_tpu_torch.dist.runner",
+        "fasim_tpu_torch.dist.dryrun"} <= set(mods), mods
+recs2 = [type("R", (), {"seq": dna})(),
+         type("R", (), {"seq": dna[::-1].copy()})()]
+one = batched.scan_records(Params(), recs2, rna, eng, batch_pairs=1)
+two = batched.scan_records(Params(), recs2, rna,
+                           [eng, TorchScanEngine(rna, device="cpu")],
+                           batch_pairs=1)
+assert one[0] and two == one, (len(two[0]), len(one[0]))
+codes = rules.SSW_ENC[np.stack(seq2)][None]
+th, cm = dist.sharded_scan_step(dist.make_mesh(1, 2, ["cpu"] * 2),
+                                rna)(codes, codes)
+assert th.shape == (1, 4) and cm.shape == (1, 4, 300)
+assert runner._loads(pickle.dumps(hits_f)) == hits_f
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fasim_tpu"))
 assert not bad, bad

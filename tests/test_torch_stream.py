@@ -438,6 +438,7 @@ def test_cli_picks_driver(tmp_path, monkeypatch, stream, size, driver):
             made.append(device)
 
     monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cli.torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(engine_mod, "TorchScanEngine", Engine)
     for name in ("batched", "stream"):
         monkeypatch.setattr(batched, f"scan_file_{name}",
