@@ -45,8 +45,9 @@ Phases, each printing one line with its seconds:
      the same call on a CPU engine; K8 sim_forward (cs and ct) on random
      pairs (T = 3), planted homology (10% mutated), a run of N, a query
      with non-ACGT bytes, m in {1, 7, 8, 31, 32, 33}, every rows-a-lane
-     instantiation at its strip edges, h19_F's group (H19 x testDNA's
-     segment, T = 2) and a NEAT1-length pair (N = 5,000), and
+     instantiation at its strip edges, and at the column edges N in {1,
+     31, 32, 33, 63, 64, 65} with m at strip edges, h19_F's group (H19 x
+     testDNA's segment, T = 2) and a NEAT1-length pair (N = 5,000), and
      sim_forward_cells on h19_F's group at K1's thresholds against the
      numpy mirror of the JAX package's host compaction;
   4. e2e     — in this process, every output file and stdout (except
@@ -61,21 +62,21 @@ Phases, each printing one line with its seconds:
      22,767 nt), malat1 (MALAT1, 8,708 nt) and meg3_sub64 through the
      CLI (K1, K3, K4), meg3_full (MEG3 lncRNA x 1.32 Mb, 532 records)
      through the CLI under FASIM_SCAN16=1 FASIM_WIN_V1=1 (K7, K6's
-     window_v1; no K1, K3 or K4), then meg3_full (K1, K3, K4) and h19_F
-     (-F, K1) through the streaming
-     driver (--tpu-stream on, FASIM_SPILL_DIR a fresh directory that must
-     be empty after the run), h19F_trunc and h19_F under
-     FASIM_SIM_DEVICE=1 (batched; K1 and K8) and h19_F under
-     --tpu-sim-device true --tpu-stream on (K1 and K8), with h19_F's
-     walls on the host SIM and on K8 printed; each CLI run must go
+     window_v1; no K1, K3 or K4), then meg3_full (K1, K3, K4) and
+     h19F_trunc (-F, K1) through the streaming driver (--tpu-stream on,
+     FASIM_SPILL_DIR a fresh directory that must be empty after the
+     run), h19F_trunc and h19_F under FASIM_SIM_DEVICE=1 (batched; K1
+     and K8) and h19_F under --tpu-sim-device true --tpu-stream on (K1
+     and K8), with the -F walls printed; each CLI run must go
      through the driver its flags pick; no run launches the long-query
      kernels window_general32 and window_keys, and no run without the
      switch launches K8;
   5. multi   — multi-GPU and multi-host: MEG3-full through the
      batched driver's round-robin over two engines (cuda:0 and
      cuda:1 where device_count() >= 2, both on cuda:0 otherwise) and
-     through the CLI under --tpu-dp-devices 2 (min(2, device_count())
-     engines), h19_F (-F, FASIM_SIM_DEVICE=1) over two engines, each
+     meg3_sub64 through the CLI under --tpu-dp-devices 2 (min(2,
+     device_count()) engines), h19F_trunc (-F, FASIM_SIM_DEVICE=1) over
+     two engines, each
      byte-identical with the kernels of its path launched (K1, K3, K4;
      K1, K8) and engine i dispatching batches i, i + n, ... of the run
      (counted by wrapping the engines' dispatch, not by the global launch
@@ -90,13 +91,15 @@ Phases, each printing one line with its seconds:
      launched);
   6. genome  — a synthetic genome (GENOME_MB = 34 Mb of random ACGT in
      5 Mb records with planted MEG3 homologies, about 34.4 MB, past the
-     CLI's 32 MiB --tpu-stream auto threshold) with MEG3 through the CLI,
-     each run in its own process: under auto (the streaming driver) and
-     under off (the batched driver); both launch K1, K3 and K4 and not
-     the long-query kernels, leave no spill file, and write byte-identical
-     output files and stdout with TFOsorted rows; each run's wall, Mb/s,
-     stage split (FASIM_PROFILE) and peak RSS (ru_maxrss of its process)
-     are printed before the last lines;
+     CLI's 32 MiB --tpu-stream auto threshold) with MEG3 through the CLI
+     in its own process under auto (the streaming driver), and a smaller
+     one from the same generator (SMALL_GENOME_MB = 8 Mb, seed 0, two
+     records) under --tpu-stream on and off (the batched driver), each in
+     its own process; every run launches K1, K3 and K4 and not the
+     long-query kernels, leaves no spill file and writes TFOsorted rows,
+     and on and off write byte-identical output files and stdout; each
+     run's wall, Mb/s, stage split (FASIM_PROFILE) and peak RSS (ru_maxrss
+     of its process) are printed before the last lines;
   7. times   — each kernel and its plain version at main-path shapes
      (CUDA events around synchronized runs; K1's ssw pass with its G
      cells/s, the SASS count of its step loop a cell (sass_loop), the
@@ -119,7 +122,12 @@ Phases, each printing one line with its seconds:
      rows a lane, at the packed-batch shape and on the per-segment rows
      at NEAT1 length, with each launched instantiation's step-loop SASS,
      registers and resident warps an SM; K8 at h19_F's group and at
-     NEAT1 length by rows a lane, with its launches a run),
+     NEAT1 length by rows a lane, the fit of its time (a lag a strip and
+     a cost a step by rows a lane), its registers and shared memory a
+     block, its launches a run, and sim_forward_cells on h19_F's group
+     piece by piece (its own `times`: encoding and copy in, K8, the
+     compare, count and nonzero, the gathers and stack, the copy to the
+     host, the numpy split),
      each kernel's bound: the larger of the least integer operations its
      cells need (scan_ops_per_cell, WINDOW_OPS_PER_CELL,
      SIM_OPS_PER_CELL) over the card's int32 rate (SMs x 64 lanes x the
@@ -217,6 +225,8 @@ K7_SCAN = ScanKernel("K7", "scan16_kernel", 2, "scan16_blocks_per_sm")
 # 32 MiB `--tpu-stream auto` threshold (about 34.4 MB on disk).
 GENOME_MB = 34
 GENOME_SEED = 0
+# and the smaller one whose streamed and batched outputs phase 6 compares
+SMALL_GENOME_MB = 8
 
 
 def synth_genome(path: str, mb: float, rna, seed: int = 0) -> int:
@@ -1255,6 +1265,7 @@ class Smoke:
                 rna = self.dna(m)
                 self.k8_case(f"strip edge m={m}", rna,
                              [planted(rna, 200), self.dna(200)], rows=rows)
+        self.k8_edges(planted)
         # h19_F's group: H19 x testDNA's one segment, the first two
         # transforms (the driver's groups of 2 at this shape)
         p = Params()
@@ -1278,6 +1289,7 @@ class Smoke:
         gm = eng.scan_segments(segs, lens)[0].cpu().numpy()[0]
         mins = [int(int(gm[k]) * 0.8) for k in range(2)]
         got = sim_forward_cells(h19, refs, mins, self.dev)
+        self.k8_group = (h19, refs, mins)
         self.k8_pair = (h19, *pairs[0], mins[0], scans[0], got[0])
         want = self.cells_mirror(*self.k8_h19, mins)
         for t, (g, w) in enumerate(zip(got, want)):
@@ -1289,6 +1301,39 @@ class Smoke:
               f"to the numpy mirror, "
               + ", ".join(f"{len(g)} cells ({len(g) / n_cells:.1%})"
                           for g in got))
+
+    K8_EDGE_N = (1, 31, 32, 33, 63, 64, 65)
+
+    def k8_edges(self, planted) -> None:
+        """K8 at the column edges of its cell ring and of its row-above
+        batches (N in K8_EDGE_N), with m at strip edges (a row short of
+        one strip, a row into the second, a row into the third), for every
+        instantiation, T = 2, exact against its plain version on cs and
+        ct."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels.sim_dev import (KERNEL_ROWS, encode,
+                                                     sim_forward,
+                                                     sim_forward_ref)
+
+        for rows in KERNEL_ROWS:
+            band = 32 * rows
+            ms = sorted({max(1, band - 1), band + 1, 2 * band + 1})
+            for m in ms:
+                for n in self.K8_EDGE_N:
+                    rna = self.dna(m)
+                    q, r = encode(rna, [planted(rna, n), self.dna(n)])
+                    qd = torch.from_numpy(q).to(self.dev)
+                    rd = torch.from_numpy(r).to(self.dev)
+                    got = sim_forward(qd, rd, m, rows=rows)
+                    want = sim_forward_ref(qd, rd, m)
+                    what = f"rows={rows} m={m} N={n}"
+                    self.compare("sim_forward", got[0], want[0],
+                                 f"{what}: cs")
+                    self.compare("sim_forward", got[1], want[1],
+                                 f"{what}: ct")
+            print(f"  K8 sim_forward at {rows} rows a lane: "
+                  f"{len(ms) * len(self.K8_EDGE_N)} edge cases (N in "
+                  f"{list(self.K8_EDGE_N)}, m in {ms}), exact")
 
     def cells_mirror(self, q, refs, m, mins):
         """The JAX package's host compaction (fasim_tpu/kernels/sim_dev.py:
@@ -1508,11 +1553,12 @@ class Smoke:
          ("scan_colmax16", "window_v1"), K135 + LONG, True),
         ("meg3_full", "meg3dna.fa", "MEG3.fa", STREAM, "cli", {}, K135,
          LONG, False),
-        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40", *STREAM],
-         "cli", {}, ("scan_colmax",), (), False),
+        ("h19F_trunc", "testDNAt.fa", "H19t.fa",
+         ["-F", "-lg", "40", *STREAM], "cli", {}, ("scan_colmax",), (),
+         False),
         # -F with the forward scan on K8 and the host replay: batched under
         # the switch (h19_F's run is the report's K8 launches), streamed
-        # under the flag; the host SIM's h19_F runs come before and after
+        # under the flag
         ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
          SIM_DEVICE, K8, (), False),
         ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli",
@@ -1520,9 +1566,6 @@ class Smoke:
         ("h19_F", "testDNA.fa", "H19.fa",
          ["-F", "-lg", "40", "--tpu-sim-device", "true", *STREAM], "cli", {},
          K8, (), False),
-        # the host SIM batched, after the K8 runs (host, K8, K8, host)
-        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "cli", {},
-         ("scan_colmax",), (), False),
     )
     # the default MEG3-full run, the main path of K1, K3 and K4: phase 8
     # drives it under torch.profiler
@@ -1599,8 +1642,8 @@ class Smoke:
         for entry in self.GOLDENS:
             self.golden_case(*entry)
         h19 = {run: wall for run, wall in self.walls.items()
-               if run.startswith("h19_F ")}
-        print("  h19_F walls, host SIM and device forward scan (K8): "
+               if run.startswith(("h19_F ", "h19F_trunc "))}
+        print("  -F walls, host SIM and device forward scan (K8): "
               + "; ".join(f"{run} {wall:.3f} s" for run, wall in h19.items()))
 
     # -- phase 5 ---------------------------------------------------------
@@ -1652,20 +1695,19 @@ class Smoke:
     MULTI = (
         ("meg3_full", "meg3dna.fa", "MEG3.fa", [], "round-robin", {}, K135,
          LONG, "scan_segments_packed", 2),
-        ("meg3_full", "meg3dna.fa", "MEG3.fa", ["--tpu-dp-devices", "2"],
+        ("meg3_sub64", "meg3sub64.fa", "MEG3.fa", ["--tpu-dp-devices", "2"],
          "cli", {}, K135, LONG, "scan_segments_packed", None),
-        ("h19_F", "testDNA.fa", "H19.fa", ["-F", "-lg", "40"], "round-robin",
-         SIM_DEVICE, K8, (), "scan_segments", 2),
+        ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"],
+         "round-robin", SIM_DEVICE, K8, (), "scan_segments", 2),
     )
 
     def phase_multi(self) -> None:
         """Multi-GPU and multi-host on the card: MEG3-full through the
         batched driver's round-robin over two engines (cuda:0 and cuda:1,
-        or both on cuda:0) and through the CLI under `--tpu-dp-devices 2`,
-        h19_F (-F) on K8 over two engines, each byte-identical with its
-        kernels launched and engine i dispatching batches i, i + n, ... of
-        the run; then
-        MEG3-full through two `fasim_tpu_torch.dist.runner` processes over
+        or both on cuda:0), meg3_sub64 through the CLI under
+        `--tpu-dp-devices 2`, h19F_trunc (-F) on K8 over two engines, each
+        byte-identical with its kernels launched and engine i dispatching
+        batches i, i + n, ... of the run; then MEG3-full through two `fasim_tpu_torch.dist.runner` processes over
         gloo (byte-identical, then again from the checkpoint spills with
         no kernel launched), and dryrun_multichip on the two devices."""
         torch = self.torch
@@ -1674,8 +1716,10 @@ class Smoke:
         for (case, f1, f2, extra, driver, env, kernels, off, dispatch,
              n) in self.MULTI:
             with self.engine_batches(dispatch) as split:
-                self.golden_case(case, f1, f2, extra, driver, env, kernels,
-                                 off, False)
+                self.golden_case(
+                    case, f1, f2, extra, driver, env, kernels, off, False,
+                    " --tpu-dp-devices 2" if "--tpu-dp-devices" in extra
+                    else "")
                 got = split()
             n = n or min(2, torch.cuda.device_count())
             total = sum(b for _, b in got)
@@ -1837,13 +1881,15 @@ sys.exit(rc)
 
     def phase_genome(self) -> None:
         """The synthetic genome (GENOME_MB of random ACGT, past the CLI's
-        32 MiB `--tpu-stream auto` threshold) with MEG3 through the CLI,
-        each run in its own process: under `auto`, which streams, and under
-        `off`, the batched driver.  Both exit 0, launch K1, K3 and K4 and
-        not the long-query kernels, leave no spill file, and write the
-        same bytes to every output file and stdout; the TFOsorted holds
-        rows.  Each run's wall, Mb/s, stage split and peak RSS are kept
-        for the lines printed before the last."""
+        32 MiB `--tpu-stream auto` threshold) with MEG3 through the CLI in
+        its own process under `auto`, which streams: it exits 0, launches
+        K1, K3 and K4 and not the long-query kernels, leaves no spill file
+        and writes TFOsorted rows.  Then a smaller genome from the same
+        generator (SMALL_GENOME_MB, seed 0, two records) under `--tpu-stream
+        on` and `off`, each in its own process: the same checks, and the
+        same bytes in every output file and on stdout.  Each run's wall,
+        Mb/s, stage split and peak RSS are kept for the lines printed
+        before the last."""
         import filecmp
 
         from fasim_tpu_torch import cli
@@ -1854,49 +1900,58 @@ sys.exit(rc)
         with tempfile.TemporaryDirectory() as tmp:
             _, rna = fasta.read_rna(os.path.join(ORACLE, "MEG3.fa"))
             shutil.copy(os.path.join(ORACLE, "MEG3.fa"), tmp)
-            path = os.path.join(tmp, "genome.fa")
-            t0 = time.perf_counter()
-            bases = synth_genome(path, GENOME_MB, rna, GENOME_SEED)
-            size = os.path.getsize(path)
-            print(f"  genome.fa: {bases} bases in {-(-bases // 5_000_000)}"
-                  f" records, {size} bytes (auto streams past "
-                  f"{cli.STREAM_AUTO_BYTES}), written in "
-                  f"{time.perf_counter() - t0:.1f} s")
-            require(cli.wants_stream(TpuConfig(stream="auto"), path),
+            for name, mb in (("genome.fa", GENOME_MB),
+                             ("genome_small.fa", SMALL_GENOME_MB)):
+                path = os.path.join(tmp, name)
+                t0 = time.perf_counter()
+                bases = synth_genome(path, mb, rna, GENOME_SEED)
+                print(f"  {name}: {bases} bases in "
+                      f"{-(-bases // 5_000_000)} records, "
+                      f"{os.path.getsize(path)} bytes, written in "
+                      f"{time.perf_counter() - t0:.1f} s")
+            size = os.path.getsize(os.path.join(tmp, "genome.fa"))
+            require(cli.wants_stream(TpuConfig(stream="auto"),
+                                     os.path.join(tmp, "genome.fa")),
                     f"--tpu-stream auto does not stream {size} bytes")
-            outs = {mode: self.genome_run(tmp, mode, bases)
-                    for mode in ("auto", "off")}
-            names = sorted(os.listdir(os.path.join(tmp, "out_auto")))
-            require(names == sorted(os.listdir(os.path.join(tmp, "out_off")))
+            self.genome_run(tmp, "genome.fa", "auto", GENOME_MB)
+            outs = {mode: self.genome_run(tmp, "genome_small.fa", mode,
+                                          SMALL_GENOME_MB)
+                    for mode in ("on", "off")}
+            dirs = {mode: os.path.join(tmp, f"out_genome_small_{mode}")
+                    for mode in outs}
+            names = sorted(os.listdir(dirs["on"]))
+            require(names == sorted(os.listdir(dirs["off"]))
                     and len(names) == 3, f"genome: output files {names}")
             for name in names:
-                require(filecmp.cmp(os.path.join(tmp, "out_auto", name),
-                                    os.path.join(tmp, "out_off", name),
+                require(filecmp.cmp(os.path.join(dirs["on"], name),
+                                    os.path.join(dirs["off"], name),
                                     shallow=False),
-                        f"genome: {name} differs between auto and off")
-            require(outs["auto"] == outs["off"],
-                    "genome: stdout differs between auto and off")
-            [tfo] = [n for n in names if n.endswith("-TFOsorted")]
-            with open(os.path.join(tmp, "out_auto", tfo)) as f:
-                rows = sum(1 for _ in f) - 1
-            require(rows > 0, "genome: the TFOsorted holds no row")
-            print(f"  genome: auto and off byte-identical, {rows} TFOsorted"
-                  " rows")
+                        f"genome: {name} differs between on and off")
+            require(outs["on"] == outs["off"],
+                    "genome: stdout differs between on and off")
+            print(f"  genome_small.fa: --tpu-stream on and off "
+                  f"byte-identical ({len(names)} files and stdout)")
 
-    def genome_run(self, tmp: str, mode: str, bases: int) -> list:
-        """One `--tpu-stream mode` CLI process on genome.fa; its stdout."""
-        spill = os.path.join(tmp, f"spill_{mode}")
+    def genome_run(self, tmp: str, fa: str, mode: str, mb: float) -> list:
+        """One `--tpu-stream mode` CLI process on `fa` (mb Mb): its stdout;
+        its output files go to out_<fa's stem>_<mode>/.  It must exit 0,
+        go through the driver `mode` picks, launch K1, K3 and K4 and not
+        the long-query kernels, leave no spill file and write TFOsorted
+        rows."""
+        stem = f"{os.path.splitext(fa)[0]}_{mode}"
+        spill = os.path.join(tmp, f"spill_{stem}")
+        out_dir = os.path.join(tmp, f"out_{stem}")
         os.mkdir(spill)
-        os.mkdir(os.path.join(tmp, f"out_{mode}"))
+        os.mkdir(out_dir)
         env = dict(os.environ, PYTHONPATH=REPO, FASIM_SPILL_DIR=spill)
-        run = f"genome --tpu-stream {mode}"
+        run = f"{fa} --tpu-stream {mode}"
         rss = []  # the process's resident set (MB), every RSS_EVERY_S
         t0 = time.perf_counter()
         with tempfile.TemporaryFile("w+") as out, \
                 tempfile.TemporaryFile("w+") as err:
             proc = subprocess.Popen(
-                [sys.executable, "-c", self.GENOME_RUN, "-f1", "genome.fa",
-                 "-f2", "MEG3.fa", "-O", f"out_{mode}/", "--tpu-profile",
+                [sys.executable, "-c", self.GENOME_RUN, "-f1", fa,
+                 "-f2", "MEG3.fa", "-O", f"out_{stem}/", "--tpu-profile",
                  "true", "--tpu-stream", mode], cwd=tmp, env=env,
                 stdout=out, stderr=err, text=True)
             try:
@@ -1924,7 +1979,7 @@ sys.exit(rc)
             if tag in ("FASIM_PROFILE", "LAUNCHES", "DRIVERS", "PEAK_RSS_MB"):
                 tagged[tag] = json.loads(rest)
         prof, counts = tagged["FASIM_PROFILE"], tagged["LAUNCHES"]
-        streamed = mode == "auto"
+        streamed = mode in ("auto", "on")
         want = "scan_file_stream" if streamed else "scan_file_batched"
         require(tagged["DRIVERS"] == {want: 1},
                 f"{run}: drivers run {tagged['DRIVERS']}")
@@ -1934,14 +1989,18 @@ sys.exit(rc)
             require(counts[k] == 0, f"{run}: kernel {k} was launched")
         left = os.listdir(spill)
         require(not left, f"{run}: spill files left behind: {left}")
+        [tfo] = [f for f in os.listdir(out_dir) if f.endswith("-TFOsorted")]
+        with open(os.path.join(out_dir, tfo)) as f:
+            rows = sum(1 for _ in f) - 1
+        require(rows > 0, f"{run}: the TFOsorted holds no row")
         split = {k: v for k, v in prof.items() if not k.startswith("n_")}
         quarters = [round(max(rss[:max(1, len(rss) * q // 4)], default=0))
                     for q in (1, 2, 3, 4)]
         self.genome.append(
-            f"genome {bases / 1e6:g} Mb x MEG3, --tpu-stream {mode} "
+            f"genome {mb:g} Mb x MEG3, --tpu-stream {mode} "
             f"({'streaming' if streamed else 'batched'} driver): wall "
             f"{wall:.3f} s for the process ({prof['wall']} s in its run), "
-            f"{bases / 1e6 / wall:.4f} Mb/s, peak RSS "
+            f"{mb / wall:.4f} Mb/s, {rows} TFOsorted rows, peak RSS "
             f"{tagged['PEAK_RSS_MB']:.1f} MB (ru_maxrss of the process; the "
             f"largest VmRSS sampled by the end of each quarter of the "
             f"run {quarters} MB), launches {counts}, stages "
@@ -2435,11 +2494,20 @@ sys.exit(rc)
 
     def k8_times(self) -> None:
         """K8 at h19_F's group shape and at NEAT1 length against its bound,
-        its plain version (timed in phase 3) and every instantiation; its
-        launches a run (phase 4).  phase_times prints its registers."""
-        from fasim_tpu_torch.kernels.sim_dev import (KERNEL_ROWS, kernel_rows,
-                                                     sim_forward)
+        its plain version (timed in phase 3) and every instantiation, and
+        the fit of its time (a lag a strip and a cost a step, a + b rows,
+        over both shapes, the model of sim_dev.kernel_rows); its registers
+        and shared memory a block (held against sim_dev.smem_bytes); its
+        launches a run (phase 4); and the split of sim_forward_cells on
+        h19_F's group.  phase_times prints every kernel's registers."""
+        np = self.np
+        from fasim_tpu_torch.kernels import _build
+        from fasim_tpu_torch.kernels.sim_dev import (KERNEL_ROWS,
+                                                     chain_steps,
+                                                     kernel_rows, sim_forward,
+                                                     smem_bytes)
 
+        points = []  # (m, N, rows, ms)
         for label, (q, refs, m), plain in (
                 ("h19_F group", self.k8_h19, self.k8_plain_h19),
                 ("NEAT1 length", self.k8_neat1, self.k8_plain_neat1)):
@@ -2453,19 +2521,82 @@ sys.exit(rc)
                 self.ms["sim_forward"] = ms
                 self.plain_ms["sim_forward"] = plain
                 self.work["sim_forward"] = work
-            rows = {r: self.cuda_ms(
+            times = {r: self.cuda_ms(
                 lambda r=r: sim_forward(q, refs, m, rows=r), 3)
                 for r in KERNEL_ROWS}
+            points += [(m, N, r, t) for r, t in times.items()]
             print(f"  K8 sim_forward, {label} T={T} m={m} N={N}: kernel "
                   f"{ms:.3f} ms at {kernel_rows(m, N, T)} rows a lane "
                   f"({cells / ms / 1e6:.1f} G cells/s), plain {plain:.3f} "
                   f"ms; bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.2%}"
                   " of it; library: none; by rows a lane: "
-                  + ", ".join(f"{r} {t:.3f} ms" for r, t in rows.items()))
+                  + ", ".join(f"{r} {t:.3f} ms" for r, t in times.items()))
+        # the model of kernel_rows: chain_steps(m, N, rows, lag) x (a + b
+        # rows) ns, lag by search and (a, b) by least squares
+        best = None
+        for lag in range(32, 97):
+            x = np.array([[chain_steps(m, n, r, lag),
+                           chain_steps(m, n, r, lag) * r]
+                          for m, n, r, _ in points], float)
+            y = np.array([t * 1e6 for *_, t in points])
+            ab = np.linalg.lstsq(x, y, rcond=None)[0]
+            err = float(np.max(np.abs(x @ ab - y) / y))
+            if best is None or err < best[0]:
+                best = (err, lag, ab)
+        err, lag, (a, b) = best
+        print(f"  K8 fitted cost, by rows a lane: a strip lags {lag} steps,"
+              f" a step costs {a:.1f} + {b:.1f} x rows ns (" + ", ".join(
+                  f"{r} rows {a + b * r:.1f} ns" for r in KERNEL_ROWS)
+              + f"); largest error {err:.1%} over both shapes")
+        regs = {short_name(k): v for k, v in ptxas_registers().items()}
+        lib = _build.lib()
+        for r in KERNEL_ROWS:
+            require(lib.fasim_sim_forward_smem(r) == smem_bytes(r),
+                    f"K8 at {r} rows a lane: the library's block takes "
+                    f"{lib.fasim_sim_forward_smem(r)} B of shared memory, "
+                    f"sim_dev.smem_bytes {smem_bytes(r)}")
+        print("  K8 registers and shared memory a block (one warp): "
+              + ", ".join(f"{r} rows "
+                          f"{regs.get(f'sim_forward_kernelILi{r}E', '?')} "
+                          f"registers, {smem_bytes(r)} B"
+                          for r in KERNEL_ROWS)
+              + " (sim_dev.smem_bytes agrees with the library)")
         for run, counts in self.counts.items():
             if counts["sim_forward"]:
                 print(f"  K8 launches, {run}: {counts['sim_forward']}")
+        self.k8_cells_split()
         self.k8_host_split()
+
+    CELLS_REPS = 5
+
+    def k8_cells_split(self) -> None:
+        """sim_forward_cells on h19_F's group, piece by piece (its own
+        `times`: CUDA events around each piece's device work and the host
+        clock up to its synchronize), with no replay running; its cells
+        must equal those of an untimed call."""
+        np = self.np
+        from fasim_tpu_torch.kernels.sim_dev import (CELLS_PIECES,
+                                                     sim_forward_cells)
+
+        h19, refs_u8, mins = self.k8_group
+        want = sim_forward_cells(h19, refs_u8, mins, self.dev)
+        times, wall = {}, 0.0
+        for _ in range(self.CELLS_REPS):
+            t0 = time.perf_counter()
+            got = sim_forward_cells(h19, refs_u8, mins, self.dev, times)
+            wall += (time.perf_counter() - t0) * 1e3
+            require(len(got) == len(want) and all(
+                np.array_equal(g, w) for g, w in zip(got, want)),
+                "sim_forward_cells differs when timed piece by piece")
+        k = self.CELLS_REPS
+        print(f"  sim_forward_cells on the h19_F group, "
+              f"{sum(len(w) for w in want)} cells, piece by piece (mean of "
+              f"{k}, device ms by CUDA events / host ms to the piece's "
+              "synchronize): " + "; ".join(
+                  f"{name} {sum(d for d, _ in times[name]) / k:.3f} / "
+                  f"{sum(h for _, h in times[name]) / k:.3f}"
+                  for name in CELLS_PIECES)
+              + f"; all {wall / k:.3f} ms on the host clock")
 
     def k8_host_split(self) -> None:
         """What K8 takes off the host: one h19_F pair's exact SIM with its

@@ -57,6 +57,7 @@ SIGNATURES = {
                         _P],
     "fasim_window_keys": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
     "fasim_sim_forward": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "fasim_sim_forward_smem": [_I],
 }
 
 _lock = threading.Lock()

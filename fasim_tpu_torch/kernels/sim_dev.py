@@ -26,6 +26,10 @@ not share the kernel's key arithmetic and the two check each other.
 
 from __future__ import annotations
 
+import contextlib
+import time
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -42,6 +46,10 @@ for _i, _c in enumerate(b"ACGT"):
 
 # query rows a lane the kernel has an instantiation for
 KERNEL_ROWS = (1, 2, 4, 8, 16)
+# shared memory a block can use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+# the columns of the row above a strip takes at a time (csrc kBatch)
+BATCH_COLS = 8
 
 
 def sim_device_ok(m: int, n: int) -> bool:
@@ -60,17 +68,72 @@ def _strips(m: int, rows: int) -> int:
     return (m + 32 * rows - 1) // (32 * rows)
 
 
+def drain_cols(rows: int) -> int:
+    """Columns a warp drains from its cell ring at a time (csrc Ring::
+    kDrain); the ring holds 32 more."""
+    return 16 if rows >= 16 else 32
+
+
+def smem_bytes(rows: int) -> int:
+    """Dynamic shared memory of a K8 block, one warp (csrc smem_bytes, and
+    fasim_sim_forward_smem, which chip_smoke.py phase 7 holds it against):
+    its cs and ct planes of 32 rows x (drain + 32) columns."""
+    return 32 * rows * (drain_cols(rows) + 32) * 8
+
+
+class Launch(NamedTuple):
+    """A K8 launch: strips (one-warp blocks) a pair, dynamic shared memory
+    a block."""
+    strips: int
+    smem: int
+
+
+def launch_shape(m: int, n: int, rows: int) -> Launch:
+    """The launch csrc/sim_forward.cu takes for m query rows and n
+    columns; raises ValueError on what its C entry refuses: rows not an
+    instantiation, a packed start past sim_device_ok, m or n < 1."""
+    if rows not in KERNEL_ROWS:
+        raise ValueError(f"sim_forward: rows {rows} not in {KERNEL_ROWS}")
+    if m < 1 or n < 1:
+        raise ValueError(f"sim_forward: no launch for m={m}, N={n}")
+    if not sim_device_ok(m, n):
+        raise ValueError(f"sim_forward: (m + 1)(N + 2) >= 2^31 at m={m}, "
+                         f"N={n}: the packed start does not fit")
+    return Launch(_strips(m, rows), smem_bytes(rows))
+
+
+def chain_steps(m: int, n: int, rows: int, lag: int | None = None) -> int:
+    """Steps of a pair's longest chain in K8: the last strip's n + 31
+    steps after `lag` steps a strip above it.  By default the schedule's
+    own lag, if every hand-off took no time: lane 31 hands column j down
+    at step j + 30, and a strip takes the row above BATCH_COLS columns at
+    a time, so it runs min(BATCH_COLS, n) + 31 steps behind the strip
+    above (tests/test_torch_sim_dev_k8.py simulates the schedule)."""
+    if lag is None:
+        lag = min(BATCH_COLS, n) + 31
+    return n + 31 + lag * (_strips(m, rows) - 1)
+
+
+# K8's time, fitted to an H100's times of every instantiation at h19_F's
+# group and NEAT1 length (chip_smoke.py phase 7; PERF.md §6): chain_steps
+# with a lag of STEP_LAG steps a strip (the hand-off's time beyond the
+# schedule's) times a + b * rows ns a step
+STEP_LAG = 45
+STEP_NS = (242.2, 34.0)
+
+
 def kernel_rows(m: int, n: int, t: int = 1, sms: int = 132) -> int:
     """Query rows a lane for K8 at m query rows, n columns and t pairs:
-    the least modelled time, (n + 63 (strips - 1)) steps (a strip runs 63
-    columns behind the one above) of a cost 2 + rows, times the one-warp
-    blocks an SM past one (t strips of each pair over `sms` SMs).  The
-    cost a step is a fit to an H100's times of every instantiation
-    (PERF.md §6)."""
+    the least modelled time, chain_steps(m, n, rows, STEP_LAG) times the
+    cost of a step STEP_NS, times the blocks an SM past one (t pairs'
+    blocks over `sms` SMs, as many a SM as its shared memory holds)."""
+    a, b = STEP_NS
+
     def cost(r: int) -> float:
-        strips = _strips(m, r)
-        return ((n + 63 * (strips - 1)) * (2 + r)
-                * max(1.0, t * strips / sms))
+        shape = launch_shape(m, n, r)
+        per_sm = max(1, SMEM_LIMIT // shape.smem)
+        return (chain_steps(m, n, r, STEP_LAG) * (a + b * r)
+                * max(1.0, t * shape.strips / (sms * per_sm)))
 
     return min(KERNEL_ROWS, key=lambda r: (cost(r), r))
 
@@ -171,21 +234,22 @@ def sim_forward(q: torch.Tensor, refs: torch.Tensor, m: int,
     rows = rows or kernel_rows(
         m, N, T, torch.cuda.get_device_properties(
             refs.device).multi_processor_count)
-    if rows not in KERNEL_ROWS:
-        raise ValueError(f"sim_forward: rows {rows} not in {KERNEL_ROWS}")
     dev = refs.device
     cs = torch.empty((T, m, N), dtype=torch.int32, device=dev)
     ct = torch.empty_like(cs)
     if cs.numel() == 0:
         return cs, ct
+    shape = launch_shape(m, N, rows)
     lib = _build.lib()
-    strips = _strips(m, rows)
     with torch.cuda.device(dev):
-        bnd = torch.empty(T * strips * N * 2, dtype=torch.int64, device=dev)
-        flags = torch.zeros(T * strips + 1, dtype=torch.int32, device=dev)
+        # each strip's bottom row, as 16-byte entries every word of which
+        # reads 0xffffffff until written; the ticket counter
+        bnd = torch.full((T * shape.strips * N * 4,), -1, dtype=torch.int32,
+                         device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.fasim_sim_forward(
-            q.data_ptr(), m, refs.data_ptr(), N, T, rows, strips,
-            bnd.data_ptr(), flags.data_ptr(), cs.data_ptr(), ct.data_ptr(),
+            q.data_ptr(), m, refs.data_ptr(), N, T, rows, shape.strips,
+            bnd.data_ptr(), ticket.data_ptr(), cs.data_ptr(), ct.data_ptr(),
             _build.stream_of(refs))
     _build.check(err, "fasim_sim_forward")
     _build.count_launch(sim_forward)
@@ -206,33 +270,74 @@ def encode(rna: np.ndarray, refs_u8: list[np.ndarray]
     return q, refs
 
 
+# the pieces of sim_forward_cells that `times` splits it into
+CELLS_PIECES = ("encode, copy in", "K8", "compare, count, nonzero",
+                "gathers, stack", "copy to host", "numpy split")
+
+
+@contextlib.contextmanager
+def _piece(times: dict | None, name: str, dev: torch.device):
+    """Time the block as piece `name` into times[name], a list of (device
+    ms by CUDA events or None on the CPU, host ms): each piece starts and
+    ends synchronized.  No-op when times is None."""
+    if times is None:
+        yield
+        return
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    yield
+    if cuda:
+        end.record()
+        torch.cuda.synchronize(dev)
+    host = (time.perf_counter() - t0) * 1e3
+    times.setdefault(name, []).append(
+        (start.elapsed_time(end) if cuda else None, host))
+
+
 def sim_forward_cells(rna: np.ndarray, refs_u8: list[np.ndarray],
-                      min_scores: list[int], device) -> list[np.ndarray]:
+                      min_scores: list[int], device,
+                      times: dict | None = None) -> list[np.ndarray]:
     """Forward-scan one query against T transformed refs on `device` (a
     CUDA device launches K8; the CPU runs the plain version) and pick out
     the qualifying cells there; returns per pair the cell stream int32[n,
     5] = (c, ci, cj, i, j) in scan order (i-major), ready for
     native.sim_scan_replay.  Only those cells leave the device.  The
     caller guarantees sim_device_ok(len(rna), len(refs_u8[0]))
-    (fasim_tpu/kernels/sim_dev.py:sim_forward_cells)."""
+    (fasim_tpu/kernels/sim_dev.py:sim_forward_cells).  A dict `times`
+    gets each of CELLS_PIECES' times appended (`_piece`; the pieces are
+    then synchronized, so measure with it, never run the driver with
+    it)."""
     m = len(rna)
     n = len(refs_u8[0])
     T = len(refs_u8)
-    q, refs = encode(rna, refs_u8)
     dev = torch.device(device)
-    cs, ct = sim_forward(torch.from_numpy(q).to(dev),
-                         torch.from_numpy(refs).to(dev), m)
-    mins = torch.tensor(min_scores, dtype=torch.int32, device=dev)
-    hit = cs > mins[:, None, None]
-    counts = hit.view(T, -1).sum(dim=1).tolist()
-    flat = torch.nonzero(hit.view(-1)).squeeze(1)  # (t, i, j) row-major
-    c = cs.view(-1)[flat]
-    st = ct.view(-1)[flat]
-    ci = torch.div(st, n + 2, rounding_mode="floor")
-    cj = st - ci * (n + 2)
-    rest = flat % (m * n)
-    cells = torch.stack([c, ci, cj, (rest // n + 1).to(torch.int32),
-                         (rest % n + 1).to(torch.int32)], dim=1)
-    cells = cells.cpu().numpy()
-    return [np.ascontiguousarray(x) for x in
-            np.split(cells, np.cumsum(counts)[:-1])]
+    with _piece(times, "encode, copy in", dev):
+        q, refs = encode(rna, refs_u8)
+        qd = torch.from_numpy(q).to(dev)
+        rd = torch.from_numpy(refs).to(dev)
+    with _piece(times, "K8", dev):
+        cs, ct = sim_forward(qd, rd, m)
+    with _piece(times, "compare, count, nonzero", dev):
+        mins = torch.tensor(min_scores, dtype=torch.int32, device=dev)
+        hit = cs > mins[:, None, None]
+        counts = hit.view(T, -1).sum(dim=1).tolist()
+        flat = torch.nonzero(hit.view(-1)).squeeze(1)  # (t, i, j) row-major
+    with _piece(times, "gathers, stack", dev):
+        c = cs.view(-1)[flat]
+        st = ct.view(-1)[flat]
+        ci = torch.div(st, n + 2, rounding_mode="floor")
+        cj = st - ci * (n + 2)
+        rest = flat % (m * n)
+        cells = torch.stack([c, ci, cj, (rest // n + 1).to(torch.int32),
+                             (rest % n + 1).to(torch.int32)], dim=1)
+    with _piece(times, "copy to host", dev):
+        cells = cells.cpu().numpy()
+    with _piece(times, "numpy split", dev):
+        out = [np.ascontiguousarray(x) for x in
+               np.split(cells, np.cumsum(counts)[:-1])]
+    return out

@@ -1,5 +1,6 @@
-"""K1, K5 and K7 (the port's scan_colmax, scan_codes_colmax and
-scan_colmax16 kernels) of two trees on one card, alternating.
+"""K1, K5, K7 and K8 (the port's scan_colmax, scan_codes_colmax,
+scan_colmax16 and sim_forward kernels) of two trees on one card,
+alternating.
 
     python3 scripts/torch_k1_ab.py --parent DIR [--min-blocks N]
 
@@ -14,7 +15,11 @@ at NEAT1 length (m=22,767); K5's ssw and threshold passes at the
 per-segment shape (48 code rows x 5,000, m=1,582), its ssw pass on a
 packed batch (64 x 48 x 5,120) and on the per-segment rows at NEAT1
 length; K7's ssw and threshold passes of K1's MEG3 batch and its ssw pass
-at NEAT1 length -- and the ptxas registers of the tree's scan kernels.  The data
+at NEAT1 length; K8 at its own launch plan on h19_F's group (H19 x
+testDNA's segment, the first two transforms: T = 2, m = 2,812, N = 4,366)
+and on a NEAT1-length pair (NEAT1 x a 5,000-nt reference with a planted,
+10% mutated piece of the query: T = 1, m = 22,767), with checksums of its
+(cs, ct) -- and the ptxas registers of the tree's scan kernels.  The data
 come from one seed, so every round sees the same inputs; the script fails
 unless every round's outputs are equal.
 
@@ -59,6 +64,32 @@ def _registers(build_log: str) -> dict[str, int]:
     return regs
 
 
+def k8_cases(np) -> list:
+    """K8's cases (label, query, refs, reps): h19_F's group and a
+    NEAT1-length pair, read from this tree's oracle/ inputs."""
+    from fasim_tpu_torch import rules
+    from fasim_tpu_torch.config import Params
+    from fasim_tpu_torch.io import fasta
+
+    oracle = os.path.join(ROOT, "oracle")
+    p = Params()
+    _, h19 = fasta.read_rna(os.path.join(oracle, "H19.fa"))
+    [rec] = fasta.read_dna(os.path.join(oracle, "testDNA.fa"))
+    [seg], _ = fasta.cut_sequence(rec.seq, p.cut_length, p.overlap_length)
+    scans = rules.scan_list(p.rule, p.strand)
+    h19_refs = [rules.make_scan_strings(seg, sc)[0] for sc in scans[:2]]
+    _, neat1 = fasta.read_rna(os.path.join(oracle, "NEAT1.fa"))
+    rng = np.random.default_rng(SEED)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ref = bases[rng.integers(0, 4, 5000)].copy()
+    piece = neat1[:3000].copy()
+    muts = rng.random(len(piece)) < 0.1
+    piece[muts] = bases[rng.integers(0, 4, int(muts.sum()))]
+    ref[1000:4000] = piece
+    return [("k8_h19F_group", h19, h19_refs, 20),
+            ("k8_neat1", neat1, [ref], 5)]
+
+
 def worker(tree: str, name: str) -> dict:
     """Time this process's K1, imported from `tree`."""
     sys.path.insert(0, tree)
@@ -73,6 +104,7 @@ def worker(tree: str, name: str) -> dict:
     from fasim_tpu_torch.kernels.scan import (decode_bases, scan_colmax,
                                               scan_colmax16)
     from fasim_tpu_torch.kernels.scan_codes import scan_codes_colmax
+    from fasim_tpu_torch.kernels.sim_dev import encode, sim_forward
 
     assert _build.__file__.startswith(os.path.abspath(tree)), _build.__file__
     dev = torch.device("cuda:0")
@@ -165,6 +197,14 @@ def worker(tree: str, name: str) -> dict:
         out["ms"][label] = ms(run5, reps)
         cm = run5()
         out["sums"][label] = [int(cm.sum()), int(cm.max())]
+    for label, rna, refs, reps in k8_cases(np):
+        q, r = encode(rna, refs)
+        qd = torch.from_numpy(q).to(dev)
+        rd = torch.from_numpy(r).to(dev)
+        m = len(rna)
+        out["ms"][label] = ms(lambda: sim_forward(qd, rd, m), reps)
+        cs, ct = sim_forward(qd, rd, m)
+        out["sums"][label] = [int(cs.long().sum()), int(ct.long().sum())]
     out["registers"] = _registers(
         (_build.BUILD_DIR / "build.log").read_text())
     return out
