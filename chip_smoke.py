@@ -24,18 +24,20 @@ Phases, each printing one line with its seconds:
      int16 gate, the full-prefix rerun), the candidate packing against
      its numpy mirror, K3 window_fwd on every width class (rlens of 32
      columns and fewer included), on a NEAT1-length query and on the
-     specs of a real candidate stage, K4 window_general (16-bit cells)
-     and window_general32 (its int32 kernel for long queries) on every
-     width class with random offs, terms and mreals, pairs of shared and
-     of mismatched offsets, at MEG3 and NEAT1 length, and on the real
-     forward and reverse specs, the engine's gates (at m = K3_MAX_M
-     uniform forward specs on K3 and reverse specs on window_general,
-     one row past it both on window_general32), K6 window_v1 (ends) and
-     its long-query kernel window_keys (keys, two 64-column windows per
-     row included) against their plain chain on the same cases as K4 (at
-     NEAT1 length the 64-column ones) and on K3's width classes, and at
-     K6's gate (largest mreal K6_MAX_MREAL on window_v1, one row past it
-     on window_keys, against K4's plain version), K5 scan_codes_colmax on its
+     specs of a real candidate stage, K4 window_general (16-bit row
+     keys) and window_general_long (its long form, the keys folded by
+     chunks of 65,536 rows) on every width class with random offs, terms
+     and mreals, pairs of shared and of mismatched offsets, at MEG3, NEAT1
+     and the 91 kb query's length (there the long form only, beside K6's),
+     and on the real forward and reverse specs, the engine's gates (at m =
+     K3_MAX_M uniform forward specs on K3 and reverse specs on
+     window_general, one row past it both on window_general_long), K6
+     window_v1 and its long form window_v1_long against their plain chain
+     on the same cases as K4 (at NEAT1 length the 64-column ones; at 91
+     kb against K4's plain version) and on K3's width classes, and at
+     K6's gate (query rows K6_MAX_NQ on window_v1, 65,664 with largest
+     mreals 65,536 and 65,537 on window_v1_long, against K4's plain
+     version), K5 scan_codes_colmax on its
      library's launch plan and at the plan's edges (one strip, strips =
      warps, strips > warps through the scratch row, one warp over several
      strips) with codes >= 8 in the rows, in both alphabets (the
@@ -68,8 +70,8 @@ Phases, each printing one line with its seconds:
      run), h19F_trunc and h19_F under FASIM_SIM_DEVICE=1 (batched; K1
      and K8) and h19_F under --tpu-sim-device true --tpu-stream on (K1
      and K8), with the -F walls printed; each CLI run must go
-     through the driver its flags pick; no run launches the long-query
-     kernels window_general32 and window_keys, and no run without the
+     through the driver its flags pick; no run launches the long forms
+     window_general_long and window_v1_long, and no run without the
      switch launches K8;
   5. multi   — multi-GPU and multi-host: MEG3-full through the
      batched driver's round-robin over two engines (cuda:0 and
@@ -93,7 +95,7 @@ Phases, each printing one line with its seconds:
      5 Mb records with planted MEG3 homologies, about 34.4 MB, past the
      CLI's 32 MiB --tpu-stream auto threshold) with MEG3 through the CLI
      in its own process under auto (the streaming driver), and a smaller
-     one from the same generator (SMALL_GENOME_MB = 8 Mb, seed 0, two
+     one from the same generator (SMALL_GENOME_MB = 5.5 Mb, seed 0, two
      records) under --tpu-stream on and off (the batched driver), each in
      its own process; every run launches K1, K3 and K4 and not the
      long-query kernels, leaves no spill file and writes TFOsorted rows,
@@ -109,13 +111,12 @@ Phases, each printing one line with its seconds:
      rows a lane, the SASS of its step loop a cell, its resident warps
      and waves) and its threshold pass; K1 and K7 at NEAT1 length on
      the full batch (kernel only) with their bound and the int32 floor;
-     K6 (window_v1 beside K4's window_general, its long-query kernel
-     window_keys, and the whole v1 pass before and after window_v1) on
-     K3's forward and K4's reverse dispatch, and the ptxas registers of K4's and K6's pair kernels;
-     on K3's dispatch also the int32 layout K3 had
-     before (window_general32 with the uniform specs), K4 on those specs,
-     and the dispatch's rlen histogram; on K4's dispatch
-     K4's int32 kernel, each width class's time, bound and swept cells,
+     K6 (window_v1 beside K4's window_general, and its long form
+     window_v1_long called directly) on K3's forward and K4's reverse
+     dispatch, and the ptxas registers of K4's and K6's pair kernels in
+     both forms; on K3's dispatch also K4 and its long form on those
+     specs, and the dispatch's rlen histogram; on K4's dispatch K4's long
+     form called directly, each width class's time, bound and swept cells,
      the histograms of the sweep spans and of the offset mismatches
      within pairs; K5 at the per-segment shape in both alphabets on its
      plan and on the candidate plans, the cycles of its step against its
@@ -137,9 +138,23 @@ Phases, each printing one line with its seconds:
      checked as phase 4 checks its runs, and the main path whose counts
      the report gives) under torch.profiler: the device time by kernel
      and copy, and their sum against the wall; it fails if the profiler
-     records no device event.
+     records no device event;
+  9. long    — the long query (long_query(): oracle/NEAT1.fa's lncRNA
+     four times, 5% of each copy's bases replaced from seed 0, 91,068
+     nt, about KCNQ1OT1's length) x testDNA (one segment, one batch)
+     through the CLI, default and under FASIM_WIN_V1=1: K1 (and K7) at
+     that length on testDNA's segment against the plain version; each run
+     launches K1 and, in every window pass, its long form
+     (window_general_long; window_v1_long) and no other window kernel;
+     every window dispatch of the run is recorded and its ends held
+     against the plain version on a seeded subset of each width class
+     (LONG_HELD rows) and every row whose offset or mreal passes 65,536;
+     both runs write the same files and stdout, with TFOsorted rows; then
+     both long forms on the run's largest forward and reverse dispatch
+     with their bounds and shares (the kernels line's times and bounds
+     of the long forms; their launches are the runs').
 
-Then the walls of phases 4, 5, 6 and 8 with the card's name and power limit,
+Then the walls of phases 4, 5, 6, 8 and 9 with the card's name and power limit,
 the card's line, one JSON line of per-kernel results and, last, the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it;
 so does a machine without a CUDA device.
@@ -226,7 +241,8 @@ K7_SCAN = ScanKernel("K7", "scan16_kernel", 2, "scan16_blocks_per_sm")
 GENOME_MB = 34
 GENOME_SEED = 0
 # and the smaller one whose streamed and batched outputs phase 6 compares
-SMALL_GENOME_MB = 8
+# (two records: 5 Mb and 0.5 Mb)
+SMALL_GENOME_MB = 5.5
 
 
 def synth_genome(path: str, mb: float, rna, seed: int = 0) -> int:
@@ -262,6 +278,40 @@ def synth_genome(path: str, mb: float, rna, seed: int = 0) -> int:
             written += n
             ri += 1
     return written
+
+
+# the long-query run (phase 9): NEAT1 four times, each copy with 5% of its
+# bases replaced, 91,068 nt, about KCNQ1OT1's length
+LONG_COPIES = 4
+LONG_MUTATED = 0.05
+LONG_SEED = 0
+# the 91 kb dispatches' rows repeated this many times fill the card
+LONG_TILE = 16
+# window rows of a dispatch held against the plain version in phase 9 (a
+# seeded subset of each width class, beside every row whose offset or
+# mreal passes 65,536)
+LONG_HELD = 2048
+
+
+def long_query(seed: int = LONG_SEED):
+    """uint8 bases of the long query: oracle/NEAT1.fa's lncRNA LONG_COPIES
+    times, each copy with LONG_MUTATED of its bases replaced by bases drawn
+    from a generator seeded with seed (a replaced base may come out the
+    same)."""
+    import numpy as np
+
+    with open(os.path.join(ORACLE, "NEAT1.fa")) as f:
+        neat1 = np.frombuffer("".join(f.read().split("\n")[1:]).encode(),
+                              np.uint8)
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    copies = []
+    for _ in range(LONG_COPIES):
+        c = neat1.copy()
+        muts = rng.random(len(c)) < LONG_MUTATED
+        c[muts] = bases[rng.integers(0, 4, int(muts.sum()))]
+        copies.append(c)
+    return np.concatenate(copies)
 
 
 def vm_rss_mb(pid: int) -> float:
@@ -439,6 +489,12 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
+def stdout_lines(text: str) -> list:
+    """A run's stdout lines but the `Running time is` one."""
+    return [ln for ln in text.splitlines()
+            if not ln.startswith("Running time is")]
+
+
 class Smoke:
     """State shared by the phases: inputs, diffs and times per kernel."""
 
@@ -449,14 +505,14 @@ class Smoke:
                           "fasim_tpu/kernels/tpu.py:911"),
         "window_v1": ("fasim_tpu_torch/csrc/window_v1.cu",
                       "fasim_tpu/kernels/tpu.py:1364"),
-        "window_keys": ("fasim_tpu_torch/csrc/window_v1.cu",
-                        "fasim_tpu/kernels/tpu.py:1364"),
+        "window_v1_long": ("fasim_tpu_torch/csrc/window_pairs.cuh",
+                           "fasim_tpu/kernels/tpu.py:1364"),
         "window_fwd": ("fasim_tpu_torch/csrc/window_fwd.cu",
                        "fasim_tpu/kernels/tpu.py:1796"),
         "window_general": ("fasim_tpu_torch/csrc/window_gen.cu",
                            "fasim_tpu/kernels/tpu.py:1529"),
-        "window_general32": ("fasim_tpu_torch/csrc/window.cu",
-                             "fasim_tpu/kernels/tpu.py:1529"),
+        "window_general_long": ("fasim_tpu_torch/csrc/window_pairs.cuh",
+                                "fasim_tpu/kernels/tpu.py:1529"),
         "scan_codes_colmax": ("fasim_tpu_torch/csrc/scan_codes.cu",
                               "fasim_tpu/kernels/tpu.py:154"),
         "sim_forward": ("fasim_tpu_torch/csrc/sim_forward.cu",
@@ -766,10 +822,10 @@ class Smoke:
                   f"best max {int(want[:, 0].max())}")
             self.k6_compare(codes, full(0), full(-1), spec[4], full(eng.m16),
                             eng, False, f"rlens {lo}..{hi}")
-            print(f"  K6 (both kernels) rlens {lo}..{hi} (W={W}): {rows} "
+            print(f"  K6 (both forms) rlens {lo}..{hi} (W={W}): {rows} "
                   "rows equal")
         self.k3_neat1()
-        for m in (MEG3_M, NEAT1_M):
+        for m in (MEG3_M, NEAT1_M, LONG_COPIES * NEAT1_M):
             self.k4_checks(m)
         self.gates()
         self.k6_gate()
@@ -778,15 +834,15 @@ class Smoke:
         """K4, K3 and K6 on the specs of a real candidate stage."""
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
-                                                    window_general32,
+                                                    window_general_long,
                                                     window_pass_ref)
 
         for rev in (False, True):
             calls = [c for c in self.capture if c[3] == rev]
             n = 0
             for segs_c, lens_c, spec, _ in calls:
-                for W, codes, part in self.spec_codes(segs_c, lens_c, spec,
-                                                      rev):
+                for W, codes, part in self.spec_codes(self.cap_eng, segs_c,
+                                                      lens_c, spec, rev):
                     qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
                     args = (codes, qp, part["offs"], part["terms"],
                             part["rlens"], part["mreals"], self.cap_eng.m)
@@ -796,8 +852,8 @@ class Smoke:
                                             else "wtab_fwd"]
                     self.compare("window_general",
                                  window_general(*args, tab), want, what)
-                    self.compare("window_general32",
-                                 window_general32(*args), want, what)
+                    self.compare("window_general_long",
+                                 window_general_long(*args, tab), want, what)
                     if not rev:  # the production forward specs are K3's
                         self.compare("window_fwd", window_fwd(
                             codes, qp, self.cap_eng._dev["wtab_fwd"],
@@ -807,8 +863,8 @@ class Smoke:
                     self.k6_compare(codes, part["offs"], part["terms"],
                                     part["rlens"], part["mreals"],
                                     self.cap_eng, rev, f"specs W={W}")
-            print(f"  {'K4' if rev else 'K3, K4'} (both K4 kernels), K6 "
-                  f"(both kernels) {'reverse' if rev else 'forward'} specs "
+            print(f"  {'K4' if rev else 'K3, K4'} (both K4 forms), K6 "
+                  f"(both forms) {'reverse' if rev else 'forward'} specs "
                   f"of a real candidate stage: {n} rows equal")
 
     # -- K3 --------------------------------------------------------------
@@ -845,21 +901,24 @@ class Smoke:
     # -- K4 --------------------------------------------------------------
 
     def k4_checks(self, m: int) -> None:
-        """K4's 16-bit kernel and its int32 kernel against the plain version,
-        and K6's two kernels against their plain chain, on every width
-        class, at query length m, on reverse-query rows with
-        random offs (half the windows copy the query from their offset on,
-        mutated), terms (none, or near the window's best: real cuts) and
-        mreals: once with few distinct offsets (pairs share their start
-        row) and mreals m..m+15, once with distinct offsets (every pair
-        mismatches) and mreals m-8..m+15.  K6 takes each width's cases in
-        one call (its plain chain steps every query row, whatever the
-        rows)."""
+        """K4's two forms (16-bit row keys while m <= K3_MAX_M, and the
+        long form) against the plain version, and K6's two forms against
+        their plain chain, on every width class, at query length m, on
+        reverse-query rows with random offs (half the windows copy the
+        query from their offset on, mutated), terms (none, or near the
+        window's best: real cuts) and mreals: once with few distinct
+        offsets (pairs share their start row) and mreals m..m+15, once with
+        distinct offsets (every pair mismatches) and mreals m-8..m+15.  K6
+        takes each width's cases in one call (its plain chain steps every
+        query row, whatever the rows); past K3_MAX_M, where that chain
+        would step every one of m rows, K6's long form is held against K4's
+        plain version (v1's ends and K4's cannot differ)."""
         np = self.np
         torch = self.torch
-        from fasim_tpu_torch.kernels.window import (window_general,
-                                                    window_general32,
+        from fasim_tpu_torch.kernels.window import (K3_MAX_M, window_general,
+                                                    window_general_long,
                                                     window_pass_ref)
+        from fasim_tpu_torch.kernels.window_v1 import window_v1_long
 
         eng = self.engine(self.dna(m))
         d = eng._dev
@@ -901,32 +960,40 @@ class Smoke:
                         dev(rl), dev(mreals), m)
                 want = window_pass_ref(*args)
                 what = f"m={m} rlens {lo}..{hi} {pairs} offsets"
-                self.compare("window_general",
-                             window_general(*args, d["wtab_rev"]), want,
+                if m <= K3_MAX_M:
+                    self.compare("window_general",
+                                 window_general(*args, d["wtab_rev"]), want,
+                                 what)
+                self.compare("window_general_long",
+                             window_general_long(*args, d["wtab_rev"]), want,
                              what)
-                self.compare("window_general32", window_general32(*args),
-                             want, what)
+                if m > K3_MAX_M:
+                    self.compare("window_v1_long", window_v1_long(
+                        codes_d, eng._qcodes(True), *args[2:],
+                        d["wtab_rev"]), want, what)
                 k6.setdefault(W, []).append(
                     (codes_d, *map(dev, (offs, terms, rl, mreals))))
-                print(f"  K4 (both kernels) {what} (W={W}): {rows} rows "
-                      f"equal, best max {int(want[:, 0].max())}, max "
-                      f"end_row {int(want[want[:, 0] > 0, 2].max())}")
+                print(f"  K4 ({'long form' if m > K3_MAX_M else 'both forms'}"
+                      f"{', K6 long form' if m > K3_MAX_M else ''}) {what} "
+                      f"(W={W}): {rows} rows equal, best max "
+                      f"{int(want[:, 0].max())}, max end_row "
+                      f"{int(want[want[:, 0] > 0, 2].max())}")
         for W, cases in k6.items():
-            if m > MEG3_M and W > 64:
+            if m > K3_MAX_M or (m > MEG3_M and W > 64):
                 # K6's plain chain steps every query row: at NEAT1 length
                 # the 64-column cases only (the wider ones at MEG3's)
                 continue
             cols = [torch.cat(c) for c in zip(*cases)]
             self.k6_compare(*cols, eng, True, f"m={m} W={W}")
-            print(f"  K6 (both kernels) m={m}, the {len(cases)} cases of "
+            print(f"  K6 (both forms) m={m}, the {len(cases)} cases of "
                   f"W={W} above: {int(cols[0].shape[0])} rows equal")
 
     def gates(self) -> None:
         """The engine's 16-bit row gates: at m = K3_MAX_M uniform forward
-        specs go to K3 and reverse specs to K4's 16-bit kernel, one query
-        row longer both to K4's int32 kernel; all equal to the plain
-        version.  The launches of the longer query are printed here, not
-        in the report's main-path counts."""
+        specs go to K3 and reverse specs to K4's 16-bit row keys, one query
+        row longer both to K4's long form; all equal to the plain version.
+        The launches of the longer query are printed here, not in the
+        report's main-path counts."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.window import (K3_MAX_M, both_strands,
@@ -950,13 +1017,13 @@ class Smoke:
             kinds = (
                 ("uniform forward", False, np.zeros(rows, np.int32),
                  np.full(rows, -1, np.int32), np.full(rows, m16, np.int32),
-                 "window_fwd" if m <= K3_MAX_M else "window_general32"),
+                 "window_fwd" if m <= K3_MAX_M else "window_general_long"),
                 ("reverse", True,
                  self.rng.integers(0, m, rows).astype(np.int32),
                  self.rng.integers(-1, 40, rows).astype(np.int32),
                  (m + self.rng.integers(0, 16, rows)).astype(np.int32),
                  "window_general" if m <= K3_MAX_M
-                 else "window_general32"))
+                 else "window_general_long"))
             for what, rev, offs, terms, mreals, want_k in kinds:
                 spec = {"seg_idx": seg_idx, "scan_idx": scan_idx,
                         "base": base, "dirn": np.ones(rows, np.int32),
@@ -969,7 +1036,7 @@ class Smoke:
                 require(counts[want_k] == 1 and sum(counts.values()) == 1,
                         f"gate, m={m}, {what}: launches {counts}, want "
                         f"{want_k}")
-                long_launches += counts["window_general32"]
+                long_launches += counts["window_general_long"]
                 cols = [torch.from_numpy(a).to(self.dev) for a in (
                     seg_idx, scan_idx, base, spec["dirn"], rl, offs, terms,
                     mreals)]
@@ -983,96 +1050,97 @@ class Smoke:
                              want, f"gate m={m} {what}")
                 print(f"  gate, m={m}: {what} specs on {want_k} only, "
                       f"{rows} rows equal")
-        # no golden query is that long, so the kernels line gives
-        # window_general32 its main-path count, 0
-        print(f"  window_general32 launches in the gate checks (not a main "
-              f"path): {long_launches}")
+        # the kernels line gives window_general_long the launches of phase
+        # 5's 91 kb run, its main path
+        print(f"  window_general_long launches in the gate checks (not a "
+              f"main path): {long_launches}")
 
     # -- K6 --------------------------------------------------------------
 
     def k6_compare(self, codes, offs, terms, rlens, mreals, eng,
                    rev: bool, what: str) -> None:
-        """K6's kernel (window_v1, ends) and its long-query kernel
-        (window_keys, keys in the v1 rows) against the plain chain
-        window_keys_ref -> decode_key -> ends_from_stats on one width
-        class, on eng's query codes and score table."""
-        from fasim_tpu_torch.kernels.window_v1 import (
-            decode_key, ends_from_stats, v1_rows, window_keys,
-            window_keys_ref, window_v1)
+        """K6's two forms (window_v1 with 16-bit row keys, window_v1_long)
+        against the plain chain v1_ends (window_keys_ref -> decode_key ->
+        ends_from_stats) on one width class, on eng's query codes and
+        score table."""
+        from fasim_tpu_torch.kernels.window_v1 import (v1_ends, window_v1,
+                                                       window_v1_long)
 
-        n, w = codes.shape
         qc = eng._qcodes(rev)
-        rows, o, mr, subw = v1_rows(codes, offs, mreals)
-        args = (rows, qc, o, mr, eng.m, subw)
-        keys = window_keys_ref(*args)
+        args = (codes, qc, offs, terms, rlens, mreals, eng.m)
+        want = v1_ends(*args)
         what = f"{'rev' if rev else 'fwd'} {what}"
-        self.compare("window_keys", window_keys(*args), keys, what)
-        mx, mrow = decode_key(keys.reshape(-1, w)[:n])
-        want = ends_from_stats(mx, mrow, terms, rlens, eng.m)
         tab = eng._dev["wtab_rev" if rev else "wtab_fwd"]
-        self.compare("window_v1", window_v1(codes, qc, offs, terms, rlens,
-                                            mreals, eng.m, tab), want, what)
+        self.compare("window_v1", window_v1(*args, tab), want, what)
+        self.compare("window_v1_long", window_v1_long(*args, tab), want,
+                     what)
 
     def k6_gate(self) -> None:
-        """K6's 16-bit row gate: at a query of K6_MAX_MREAL - 14 rows, whose
-        query rows pass K6_MAX_MREAL, a dispatch whose largest mreal is
-        K6_MAX_MREAL launches K6's kernel only, one whose largest mreal is
-        one row past it the long-query kernel only; both equal K4's plain
+        """K6's 16-bit row gate, by the query rows nq = query_rows(m): at m =
+        K6_MAX_NQ - 15 (nq = K6_MAX_NQ) a dispatch whose largest mreal is
+        nq launches K6's 16-bit row keys only; one query row longer (m =
+        K6_MAX_NQ - 14, nq = 65,664), dispatches whose largest mreal is
+        65,536 and 65,537 launch the long form only.  All equal K4's plain
         version window_pass_ref (v1's ends and K4's cannot differ; K6's own
-        plain chain, held against both kernels in k6_compare, would step
-        all 65,522 query rows here).  The launches are printed here, not in
-        the report's main-path counts."""
+        plain chain, held against both forms in k6_compare, would step all
+        65,5xx query rows here).  The launches are printed here, not in the
+        report's main-path counts."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.window import window_pass_ref
-        from fasim_tpu_torch.kernels.window_v1 import K6_MAX_MREAL, window_v1
-
-        m = K6_MAX_MREAL - 14
-        eng = self.engine(self.dna(m))
-        qc = eng._qcodes(True)
-        q = qc[:m].cpu().numpy()
-        rows, W = 200, 64
-        rl = self.rng.integers(10, W + 1, rows)
-        offs = np.concatenate([self.rng.integers(0, m, rows - 4),
-                               [m - 40, m - 20, m - 5, m - 1]])
-        codes = self.rng.integers(0, 5, (rows, W)).astype(np.uint8)
-        for r in range(rows):  # copy the query from the offset, mutated
-            n = min(m - offs[r], rl[r])
-            piece = q[offs[r]:offs[r] + n].copy()
-            muts = self.rng.random(n) < 0.15
-            piece[muts] = self.rng.integers(0, 5, int(muts.sum()))
-            codes[r, :n] = piece
-        codes[np.arange(W)[None, :] >= rl[:, None]] = 4
-        mreals = m + self.rng.integers(0, 14, rows)
-        mreals[-3:] = K6_MAX_MREAL  # the last keyed row of the gate
-        mreals[-1] = K6_MAX_MREAL + 1  # one past it
-        terms = np.where(self.rng.random(rows) < 0.5, -1,
-                         self.rng.integers(0, 40, rows))
+        from fasim_tpu_torch.kernels.window_v1 import K6_MAX_NQ, window_v1
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
 
-        cols = [dev(codes), *(dev(a.astype(np.int32)) for a in (
-            offs, terms, rl, mreals))]
-        want = window_pass_ref(cols[0], eng._dev["qwin_rev"], *cols[1:], m)
         long_launches = 0
-        for what, n, kernel in (
-                (f"largest mreal {K6_MAX_MREAL}", rows - 1, "window_v1"),
-                (f"largest mreal {K6_MAX_MREAL + 1}", rows, "window_keys")):
-            c, o, t, r, mr = (a[:n].contiguous() for a in cols)
-            self.reset_counts()
-            got = window_v1(c, qc, o, t, r, mr, m, eng._dev["wtab_rev"])
-            torch.cuda.synchronize()
-            counts = self.read_counts()
-            require(counts[kernel] > 0 and sum(counts.values())
-                    == counts[kernel], f"K6 gate, m={m}, {what}: launches "
-                    f"{counts}, want {kernel}")
-            long_launches += counts["window_keys"]
-            self.compare(kernel, got, want[:n], f"gate m={m} {what}")
-            print(f"  K6 gate, m={m} ({qc.numel()} query rows): {what} on "
-                  f"{kernel} only, {n} rows equal, max end_row "
-                  f"{int(want[:n][want[:n, 0] > 0, 2].max())}")
-        print(f"  window_keys launches in the K6 gate check (not a main "
+        for m in (K6_MAX_NQ - 15, K6_MAX_NQ - 14):
+            eng = self.engine(self.dna(m))
+            qc = eng._qcodes(True)
+            q = qc[:m].cpu().numpy()
+            rows, W = 200, 64
+            rl = self.rng.integers(10, W + 1, rows)
+            offs = np.concatenate([self.rng.integers(0, m, rows - 4),
+                                   [m - 40, m - 20, m - 5, m - 1]])
+            codes = self.rng.integers(0, 5, (rows, W)).astype(np.uint8)
+            for r in range(rows):  # copy the query from the offset, mutated
+                n = min(m - offs[r], rl[r])
+                piece = q[offs[r]:offs[r] + n].copy()
+                muts = self.rng.random(n) < 0.15
+                piece[muts] = self.rng.integers(0, 5, int(muts.sum()))
+                codes[r, :n] = piece
+            codes[np.arange(W)[None, :] >= rl[:, None]] = 4
+            mreals = m + self.rng.integers(0, 14, rows)
+            terms = np.where(self.rng.random(rows) < 0.5, -1,
+                             self.rng.integers(0, 40, rows))
+            if m < K6_MAX_NQ - 14:
+                mreals[-1] = qc.numel()  # the last keyed row of the gate
+                cases = ((f"largest mreal {qc.numel()}", rows, "window_v1"),)
+            else:
+                mreals[-3:] = K6_MAX_NQ  # 65,536
+                mreals[-1] = K6_MAX_NQ + 1  # one past it
+                cases = tuple((f"largest mreal {top}", n, "window_v1_long")
+                              for top, n in ((K6_MAX_NQ, rows - 1),
+                                             (K6_MAX_NQ + 1, rows)))
+            cols = [dev(codes), *(dev(a.astype(np.int32)) for a in (
+                offs, terms, rl, mreals))]
+            want = window_pass_ref(cols[0], eng._dev["qwin_rev"], *cols[1:],
+                                   m)
+            for what, n, kernel in cases:
+                c, o, t, r, mr = (a[:n].contiguous() for a in cols)
+                self.reset_counts()
+                got = window_v1(c, qc, o, t, r, mr, m, eng._dev["wtab_rev"])
+                torch.cuda.synchronize()
+                counts = self.read_counts()
+                require(counts[kernel] > 0 and sum(counts.values())
+                        == counts[kernel], f"K6 gate, m={m}, {what}: "
+                        f"launches {counts}, want {kernel}")
+                long_launches += counts["window_v1_long"]
+                self.compare(kernel, got, want[:n], f"gate m={m} {what}")
+                print(f"  K6 gate, m={m} ({qc.numel()} query rows): {what} "
+                      f"on {kernel} only, {n} rows equal, max end_row "
+                      f"{int(want[:n][want[:n, 0] > 0, 2].max())}")
+        print(f"  window_v1_long launches in the K6 gate check (not a main "
               f"path): {long_launches}")
 
     # -- K5 --------------------------------------------------------------
@@ -1359,8 +1427,10 @@ class Smoke:
             outs.append(np.ascontiguousarray(cells[order]))
         return outs
 
-    def spec_codes(self, segs_c, lens_c, spec, rev):
-        """Per width class: (W, codes, spec columns) on the card."""
+    def spec_codes(self, eng, segs_c, lens_c, spec, rev):
+        """Per width class of a dispatch of eng: (W, codes, spec columns) on
+        the card; the columns' "sel" holds the class's rows of the dispatch
+        (numpy)."""
         np = self.np
         torch = self.torch
         from fasim_tpu_torch.kernels.engine import SPEC_KEYS
@@ -1368,7 +1438,6 @@ class Smoke:
                                                     gather_window_codes,
                                                     width_class)
 
-        eng = self.cap_eng
         d = eng._dev
         segs_d = torch.as_tensor(segs_c, device=self.dev)
         S, N = segs_d.shape
@@ -1386,6 +1455,7 @@ class Smoke:
                 both, S, N, d["lut_s"], d["is_tr"], part["seg_idx"],
                 part["scan_idx"], part["base"], part["dirn"], part["rlens"],
                 W)
+            part["sel"] = sel
             out.append((W, codes, part))
         return out
 
@@ -1443,35 +1513,42 @@ class Smoke:
         return lambda p, rna: scan_file_batched(
             p, TorchScanEngine(rna, device=self.dev, use_v2=False))
 
+    def run_cli(self, tmp: str, case: str, f1: str, f2: str, extra: list,
+                driver: str = "cli", out: str = "out"):
+        """The port's CLI (or cli.run with another driver's scan) in tmp on
+        -f1 f1 -f2 f2 into tmp/out; returns (wall, stdout)."""
+        from fasim_tpu_torch import cli
+
+        os.mkdir(os.path.join(tmp, out))
+        buf = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        argv = ["-f1", f1, "-f2", f2, "-O", f"{out}/",
+                "--tpu-stdout-compat", "true", *extra]
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                if driver == "cli":
+                    rc = cli.main(argv)
+                else:
+                    p, tpu = cli.parse_args(argv)
+                    rc = cli.run(p, tpu, self.scan_for(driver))
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        require(rc == 0, f"{case}: exit {rc}")
+        return wall, buf.getvalue()
+
     def run_golden(self, case: str, f1: str, f2: str, extra: list,
                    driver: str) -> float:
         import filecmp
-
-        from fasim_tpu_torch import cli
 
         golden = os.path.join(ORACLE, "golden", case)
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copy(os.path.join(ORACLE, f1), tmp)
             shutil.copy(os.path.join(ORACLE, f2), tmp)
-            os.mkdir(os.path.join(tmp, "out"))
-            buf = io.StringIO()
-            cwd = os.getcwd()
-            os.chdir(tmp)
-            argv = ["-f1", f1, "-f2", f2, "-O", "out/",
-                    "--tpu-stdout-compat", "true", *extra]
-            try:
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(buf):
-                    if driver == "cli":
-                        rc = cli.main(argv)
-                    else:
-                        p, tpu = cli.parse_args(argv)
-                        rc = cli.run(p, tpu, self.scan_for(driver))
-                self.torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                os.chdir(cwd)
-            require(rc == 0, f"{case}: exit {rc}")
+            wall, stdout = self.run_cli(tmp, case, f1, f2, extra, driver)
             produced = sorted(os.listdir(os.path.join(tmp, "out")))
             expected = sorted(f for f in os.listdir(golden)
                               if not f.startswith("stdout"))
@@ -1483,13 +1560,9 @@ class Smoke:
                                     shallow=False),
                         f"{case}/{name} differs from the golden")
 
-        def strip(text):
-            return [ln for ln in text.splitlines()
-                    if not ln.startswith("Running time is")]
-
-        [stdout] = [f for f in os.listdir(golden) if f.startswith("stdout")]
-        with open(os.path.join(golden, stdout)) as f:
-            require(strip(buf.getvalue()) == strip(f.read()),
+        [name] = [f for f in os.listdir(golden) if f.startswith("stdout")]
+        with open(os.path.join(golden, name)) as f:
+            require(stdout_lines(stdout) == stdout_lines(f.read()),
                     f"{case}: stdout differs from the golden")
         return wall
 
@@ -1501,10 +1574,10 @@ class Smoke:
         return {"scan_colmax": scan.scan_colmax,
                 "scan_colmax16": scan.scan_colmax16,
                 "window_v1": window_v1.window_v1,
-                "window_keys": window_v1.window_keys,
+                "window_v1_long": window_v1.window_v1_long,
                 "window_fwd": window.window_fwd,
                 "window_general": window.window_general,
-                "window_general32": window.window_general32,
+                "window_general_long": window.window_general_long,
                 "scan_codes_colmax": scan_codes.scan_codes_colmax,
                 "sim_forward": sim_dev.sim_forward}
 
@@ -1517,8 +1590,8 @@ class Smoke:
 
     K135 = ("scan_colmax", "window_fwd", "window_general")
     # every golden query is shorter than K3_MAX_M rows: no run takes the
-    # long-query kernels of K4 and K6
-    LONG = ("window_general32", "window_keys")
+    # long form of K4 and K6 (phase 5's 91 kb query does)
+    LONG = ("window_general_long", "window_v1_long")
     SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
     STREAM = ["--tpu-stream", "on"]
     SIM_DEVICE = {"FASIM_SIM_DEVICE": "1"}
@@ -2019,27 +2092,26 @@ sys.exit(rc)
             print(f"  ptxas registers {short_name(name)}: {regs}")
 
     def window_times(self) -> None:
-        """K3, K4 and K6 (each with its long-query kernel) on the largest
-        forward and reverse window dispatch of a real candidate stage."""
+        """K3, K4 and K6 on the largest forward and reverse window dispatch
+        of a real candidate stage, and the long forms of K4 and K6 called
+        directly on the same dispatches (like for like; phase 9 times them
+        on the 91 kb query's)."""
         np = self.np
         from fasim_tpu_torch.kernels.window import (window_fwd,
                                                     window_general,
-                                                    window_general32,
+                                                    window_general_long,
                                                     window_pass_ref)
-        from fasim_tpu_torch.kernels.window_v1 import (v1_ends, v1_rows,
-                                                       window_keys,
-                                                       window_keys_ref,
-                                                       window_v1)
+        from fasim_tpu_torch.kernels.window_v1 import (v1_ends, window_v1,
+                                                       window_v1_long)
 
         # the largest forward and reverse dispatch of the meg3sub64 batch;
-        # K6's numbers (both kernels) are those of both dispatches
-        k6 = {k: {"ms": 0.0, "plain": 0.0, "ops": 0.0, "bytes": 0}
-              for k in ("window_v1", "window_keys")}
+        # K6's numbers are those of both dispatches
+        k6 = {"ms": 0.0, "long": 0.0, "plain": 0.0, "ops": 0.0, "bytes": 0}
         for kernel, rev in (("window_fwd", False), ("window_general", True)):
             calls = [c for c in self.capture if c[3] == rev]
             segs_c, lens_c, spec, _ = max(calls,
                                           key=lambda c: len(c[2]["rlens"]))
-            parts = self.spec_codes(segs_c, lens_c, spec, rev)
+            parts = self.spec_codes(self.cap_eng, segs_c, lens_c, spec, rev)
             qp = self.cap_eng._dev["qwin_rev" if rev else "qwin_fwd"]
             tab = self.cap_eng._dev["wtab_rev" if rev else "wtab_fwd"]
             m, m16 = self.cap_eng.m, self.cap_eng.m16
@@ -2052,16 +2124,16 @@ sys.exit(rc)
                     v1_args = (codes, qc, *args[2:])
                     if how == "window_v1":
                         window_v1(*v1_args, tab)
-                    elif how == "v1_ends":  # the parent's K6: int32 keys
-                        v1_ends(*v1_args, keys=window_keys)
+                    elif how == "window_v1_long":
+                        window_v1_long(*v1_args, tab)
                     elif how == "v1_plain":
                         v1_ends(*v1_args)
                     elif how == "plain":
                         window_pass_ref(*args)
                     elif how == "window_general":
                         window_general(*args, tab)
-                    elif how == "window_general32":
-                        window_general32(*args)
+                    elif how == "window_general_long":
+                        window_general_long(*args, tab)
                     else:
                         window_fwd(codes, qp, tab, part["rlens"], m, m16)
 
@@ -2089,75 +2161,54 @@ sys.exit(rc)
             print("  rlen histogram of the dispatch: " + ", ".join(
                 f"({a}, {b}] {int(n)}" for a, b, n in zip(
                     edges, edges[1:], hist)))
+            k4_long = self.cuda_ms(lambda: run("window_general_long"), 5)
             if not rev:
-                # the same specs (off 0, terms -1, mreals m16) on K4's int32
-                # kernel (the int32 layout K3 had before window_fwd.cu) and
-                # on its 16-bit kernel
-                old_ms = self.cuda_ms(lambda: run("window_general32"), 5)
+                # the same specs (off 0, terms -1, mreals m16) on K4
                 k4_ms = self.cuda_ms(lambda: run("window_general"), 5)
                 k6_ms = self.cuda_ms(lambda: run("window_v1"), 5)
                 print(f"  K3 window_fwd {self.ms[kernel]:.3f} ms against "
-                      f"the int32 layout (window_general32, uniform specs) "
-                      f"{old_ms:.3f} ms and K4's 16-bit kernel "
-                      f"(window_general) {k4_ms:.3f} ms on the same "
+                      f"K4 (window_general) {k4_ms:.3f} ms and its long form "
+                      f"(window_general_long) {k4_long:.3f} ms on the same "
                       "dispatch")
             else:
                 k4_ms = self.ms[kernel]
                 k6_ms = self.cuda_ms(lambda: run("window_v1"), 5)
-                self.ms["window_general32"] = self.cuda_ms(
-                    lambda: run("window_general32"), 5)
-                self.plain_ms["window_general32"] = self.plain_ms[kernel]
-                self.work["window_general32"] = self.work[kernel]
-                print(f"  K4 window_general {self.ms[kernel]:.3f} ms against "
-                      f"its int32 kernel (window_general32) "
-                      f"{self.ms['window_general32']:.3f} ms on the same "
-                      f"dispatch")
+                print(f"  K4 window_general {k4_ms:.3f} ms against its long "
+                      f"form (window_general_long, called directly) "
+                      f"{k4_long:.3f} ms = {k4_long / k4_ms:.3f}x on the "
+                      "same dispatch")
                 self.k4_sweep(spec, parts, qp, tab, m, cells)
-            # K6 on the same dispatch: its kernel beside K4's, its
-            # long-query kernel in the v1 rows, and the whole v1 pass as the
-            # engine calls it before this kernel (int32 keys and the ends
-            # glue) and now (window_v1)
-            rows6 = [v1_rows(c, p["offs"], p["mreals"]) for _, c, p in parts]
-
-            def keys6(fn, rows6=rows6, qc=qc):
-                for codes6, o, mr, subw in rows6:
-                    fn(codes6, qc, o, mr, m, subw)
-
-            keys_ms = self.cuda_ms(lambda: keys6(window_keys), 5)
-            before_ms = self.cuda_ms(lambda: run("v1_ends"), 5)
-            k6["window_v1"]["ms"] += k6_ms
-            k6["window_keys"]["ms"] += keys_ms
-            k6["window_v1"]["plain"] += self.cuda_ms(
-                lambda: run("v1_plain"), 1, warm=False)
-            k6["window_keys"]["plain"] += self.cuda_ms(
-                lambda: keys6(window_keys_ref), 1, warm=False)
-            for name in k6:
-                k6[name]["ops"] += WINDOW_OPS_PER_CELL * cells
-            k6["window_v1"]["bytes"] += code_bytes + rows * 28 + 8 * int(
-                qc.numel())
-            k6["window_keys"]["bytes"] += sum(
-                5 * int(r.numel()) + 8 * int(o.numel())
-                for r, o, _, _ in rows6) + 4 * int(qc.numel())
+            # K6 on the same dispatch: its kernel beside K4's, and its long
+            # form called directly
+            k6_long = self.cuda_ms(lambda: run("window_v1_long"), 5)
+            k6["ms"] += k6_ms
+            k6["long"] += k6_long
+            k6["plain"] += self.cuda_ms(lambda: run("v1_plain"), 1,
+                                        warm=False)
+            k6["ops"] += WINDOW_OPS_PER_CELL * cells
+            k6["bytes"] += code_bytes + rows * 28 + 8 * int(qc.numel())
             print(f"  K6 window_v1, the same dispatch: {k6_ms:.3f} ms = "
                   f"{k6_ms / k4_ms:.3f}x K4's window_general ({k4_ms:.3f} "
-                  f"ms); its long-query kernel window_keys in "
-                  f"{sum(int(r.shape[0]) for r, *_ in rows6)} v1 rows "
-                  f"{keys_ms:.3f} ms; the whole v1 pass as the engine calls "
-                  f"it: before (window_keys and the ends glue) "
-                  f"{before_ms:.3f} ms, now (window_v1) {k6_ms:.3f} ms")
-        for name, v in k6.items():
-            self.ms[name] = v["ms"]
-            self.plain_ms[name] = v["plain"]
-            self.work[name] = (v["ops"], v["bytes"])
-        print(f"  K6 window_v1 on both dispatches {k6['window_v1']['ms']:.3f}"
-              f" ms (window_keys {k6['window_keys']['ms']:.3f} ms)")
+                  f"ms); its long form (window_v1_long, called directly) "
+                  f"{k6_long:.3f} ms = {k6_long / k6_ms:.3f}x")
+        self.ms["window_v1"] = k6["ms"]
+        self.plain_ms["window_v1"] = k6["plain"]
+        self.work["window_v1"] = (k6["ops"], k6["bytes"])
+        print(f"  K6 window_v1 on both dispatches {k6['ms']:.3f} ms, its "
+              f"long form {k6['long']:.3f} ms")
+        self.print_pair_registers()
+
+    def print_pair_registers(self) -> None:
+        """ptxas registers of K4's and K6's pair kernels, both forms."""
         pairs = sorted((short_name(e), r) for e, r in
                        ptxas_registers().items()
                        if "window_pairs_kernel" in e)
         for policy, name in ((0, "K4"), (1, "K6")):
-            print(f"  ptxas registers {name} (window_pairs_kernel at 64 / 128 "
-                  "/ 256 columns): " + " / ".join(
-                      str(r) for e, r in pairs if e.endswith(f"Lb{policy}E")))
+            for form, label in ((0, "16-bit row keys"), (1, "long form")):
+                print(f"  ptxas registers {name}, {label} (window_pairs_kernel"
+                      " at 64 / 128 / 256 columns): " + " / ".join(
+                          str(r) for e, r in pairs
+                          if e.endswith(f"Lb{policy}ELb{form}E")))
 
     def k1_times(self) -> None:
         """K1 on the main-path batch of phase 3: its ssw pass against the
@@ -2655,6 +2706,251 @@ sys.exit(rc)
         for name, us in busy_us.most_common(16):
             print(f"    {us / 1e3:.3f} ms in {count[name]} x {name[:100]}")
 
+    # -- phase 9 ---------------------------------------------------------
+
+    @staticmethod
+    @contextlib.contextmanager
+    def recorded_dispatches():
+        """In the block, every TorchScanEngine.window_pass_specs call: (the
+        engine, segs, lengths, spec, rev, the ends it returned), each
+        argument copied."""
+        import numpy as np
+        import torch
+
+        from fasim_tpu_torch.kernels.engine import TorchScanEngine
+
+        calls = []
+        real = TorchScanEngine.window_pass_specs
+
+        def copy(a):
+            return a.clone() if torch.is_tensor(a) else np.array(a)
+
+        def recorded(eng, segs, lengths, spec, rev):
+            ends = real(eng, segs, lengths, spec, rev)
+            calls.append((eng, copy(segs), copy(lengths),
+                          {k: np.array(v) for k, v in spec.items()}, rev,
+                          ends.copy()))
+            return ends
+
+        TorchScanEngine.window_pass_specs = recorded
+        try:
+            yield calls
+        finally:
+            TorchScanEngine.window_pass_specs = real
+
+    def held_rows(self, part, m: int):
+        """The rows of one width class of a dispatch held against the plain
+        version: every row whose offset or mreal passes 65,536, and a
+        seeded sample of LONG_HELD of the others (all of them if fewer)."""
+        np = self.np
+        offs = part["offs"].cpu().numpy()
+        mreals = part["mreals"].cpu().numpy()
+        past = (offs > 1 << 16) | (mreals > 1 << 16)
+        rest = np.flatnonzero(~past)
+        if len(rest) > LONG_HELD:
+            rest = self.rng.choice(rest, LONG_HELD, replace=False)
+        return np.sort(np.concatenate([np.flatnonzero(past), rest]))
+
+    def long_dispatch_checks(self, calls, kernel: str) -> int:
+        """Every recorded dispatch's ends (the run's own, from `kernel`)
+        against the plain version on its held rows, per width class, in
+        chunks of LONG_HELD rows: K4's window_pass_ref, also for K6's long
+        form (v1's ends and K4's cannot differ; K6's plain chain, held
+        against it at lengths past 65,536 in phase 3 and on the CPU, steps
+        all 91,068 query rows a call).  Returns the rows held."""
+        torch = self.torch
+        from fasim_tpu_torch.kernels.window import window_pass_ref
+
+        held = 0
+        for eng, segs, lens, spec, rev, ends in calls:
+            qp = eng._dev["qwin_rev" if rev else "qwin_fwd"]
+            for W, codes, part in self.spec_codes(eng, segs, lens, spec, rev):
+                rows = self.held_rows(part, eng.m)
+                got = torch.from_numpy(ends[part["sel"][rows]]).to(self.dev)
+                for c in range(0, len(rows), LONG_HELD):
+                    r = torch.from_numpy(rows[c:c + LONG_HELD]).to(self.dev)
+                    want = window_pass_ref(codes[r], qp, part["offs"][r],
+                                           part["terms"][r],
+                                           part["rlens"][r],
+                                           part["mreals"][r], eng.m)
+                    self.compare(kernel, got[c:c + LONG_HELD], want,
+                                 f"91 kb {'rev' if rev else 'fwd'} dispatch "
+                                 f"W={W}")
+                held += len(rows)
+                print(f"    {'reverse' if rev else 'forward'} dispatch, "
+                      f"W={W}: {len(rows)} of {len(part['sel'])} rows held, "
+                      f"equal")
+        return held
+
+    def phase_long(self) -> None:
+        """The long query (long_query(): 91,068 nt) x oracle/testDNA.fa (one
+        segment, one batch) through the CLI (batched driver, fastSIM, no
+        -F), default (K1, then every window pass on K4's long form
+        window_general_long: the forward specs too, past K3_MAX_M) and under
+        FASIM_WIN_V1=1 (K6's long form window_v1_long): each run launches
+        its long form in its window passes and no other window kernel,
+        every window dispatch is recorded and held against the plain
+        version on its held rows (`held_rows`), both runs write the same
+        files and stdout, with TFOsorted rows; K1 (and K7) at that length
+        on testDNA's segment against the plain version; no wrapper, entry
+        point or kernel of the retired int32 long-query kernels is left.
+        Each run's wall is kept; its long form's launches are the kernels
+        line's."""
+        from fasim_tpu_torch.config import Params
+        from fasim_tpu_torch.io import fasta
+        from fasim_tpu_torch.kernels import _build, window, window_v1
+
+        # the int32 long-query kernels are gone: no wrapper, no entry point,
+        # no kernel in the library
+        gone = [name for name in ("window_general32", "window_keys")
+                if hasattr(window, name) or hasattr(window_v1, name)]
+        gone += [name for name in ("fasim_window_general",
+                                   "fasim_window_keys")
+                 if hasattr(_build.lib(), name)]
+        gone += [name for name in ptxas_registers()
+                 if "window_ends_kernel" in name
+                 or "window_keys_kernel" in name]
+        require(not gone, f"retired long-query kernels still built: {gone}")
+        rna = long_query()
+        p = Params()
+        [rec] = fasta.read_dna(os.path.join(ORACLE, "testDNA.fa"))
+        segs, _ = fasta.cut_sequence(rec.seq, p.cut_length, p.overlap_length)
+        self.k1_case(f"{len(rna)}-nt query x testDNA", rna, segs, 5120,
+                     k7_plain=False)
+        window_kernels = ("window_fwd", "window_general",
+                          "window_general_long", "window_v1",
+                          "window_v1_long")
+        outs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "NEAT1x4.fa"), "w") as f:
+                f.write(">NEAT1x4\n" + rna.tobytes().decode() + "\n")
+            shutil.copy(os.path.join(ORACLE, "testDNA.fa"), tmp)
+            for n, (env, kernel) in enumerate((
+                    ({}, "window_general_long"),
+                    ({"FASIM_WIN_V1": "1"}, "window_v1_long"))):
+                run = (f"{len(rna)}-nt query x testDNA (cli"
+                       + "".join(f", {k}={v}" for k, v in env.items()) + ")")
+                with kept_environment(), switches(**env), \
+                        self.driver_calls() as drivers, \
+                        self.recorded_dispatches() as calls:
+                    self.reset_counts()
+                    wall, stdout = self.run_cli(
+                        tmp, run, "testDNA.fa", "NEAT1x4.fa", [],
+                        out=f"out{n}")
+                    counts = self.read_counts()
+                require(drivers == {"scan_file_batched": 1},
+                        f"{run}: drivers run {drivers}")
+                print(f"  {run}: wall {wall:.3f} s, {len(calls)} window "
+                      f"dispatches ({sum(len(c[3]['rlens']) for c in calls)}"
+                      f" rows), launches {counts}")
+                require(counts["scan_colmax"] > 0 and counts[kernel] > 0,
+                        f"{run}: scan_colmax or {kernel} never launched")
+                for k in (*window_kernels, "sim_forward"):
+                    require(k == kernel or counts[k] == 0,
+                            f"{run}: {k} launched {counts[k]} times")
+                t0 = time.perf_counter()
+                held = self.long_dispatch_checks(calls, kernel)
+                print(f"  {run}: {held} window rows held against the plain "
+                      f"version, equal ({time.perf_counter() - t0:.1f} s)")
+                files = {}
+                for name in sorted(os.listdir(os.path.join(tmp, f"out{n}"))):
+                    with open(os.path.join(tmp, f"out{n}", name), "rb") as f:
+                        files[name] = f.read()
+                outs.append((files, stdout_lines(stdout)))
+                self.walls[run] = wall
+                self.counts[run] = counts
+                self.launches[kernel] = counts[kernel]
+                if not env:  # long_times times its dispatches
+                    self.long_calls = calls
+        require(outs[0] == outs[1], "the 91 kb runs' outputs differ between "
+                "the default and FASIM_WIN_V1=1")
+        [sorted_name] = [k for k in outs[0][0] if k.endswith("TFOsorted")]
+        rows = outs[0][0][sorted_name].count(b"\n") - 1
+        require(rows > 0, f"{sorted_name}: no TFOsorted rows")
+        print(f"  both runs write the same {len(outs[0][0])} files and "
+              f"stdout; {sorted_name}: {rows} rows")
+        self.long_times()
+
+    def long_times(self) -> None:
+        """K4's and K6's long forms (window_general_long, window_v1_long) and
+        the plain version (window_pass_ref, in chunks of LONG_HELD rows) on
+        the largest forward and on the largest reverse window dispatch of
+        the default 91 kb run, each with its bound (WINDOW_OPS_PER_CELL a
+        needed cell) and the kernel's share of it; the kernels line gives
+        the sums over both dispatches.  K6's plain time is K4's plain
+        version's: its own chain steps every query row a call."""
+        np = self.np
+        torch = self.torch
+        from fasim_tpu_torch.kernels.window import (window_general_long,
+                                                    window_pass_ref)
+        from fasim_tpu_torch.kernels.window_v1 import window_v1_long
+
+        acc = {k: [0.0, 0.0, 0.0, 0] for k in ("window_general_long",
+                                               "window_v1_long")}
+        for rev in (False, True):
+            eng, segs, lens, spec, _, _ = max(
+                (c for c in self.long_calls if c[4] == rev),
+                key=lambda c: len(c[3]["rlens"]))
+            parts = self.spec_codes(eng, segs, lens, spec, rev)
+            m = eng.m
+            qp = eng._dev["qwin_rev" if rev else "qwin_fwd"]
+            tab = eng._dev["wtab_rev" if rev else "wtab_fwd"]
+            qc = eng._qcodes(rev)
+
+            def run(how, parts=parts, qp=qp, tab=tab, qc=qc, m=m):
+                for _, codes, part in parts:
+                    args = (part["offs"], part["terms"], part["rlens"],
+                            part["mreals"], m)
+                    if how == "window_general_long":
+                        window_general_long(codes, qp, *args, tab)
+                    elif how == "window_v1_long":
+                        window_v1_long(codes, qc, *args, tab)
+                    else:
+                        for c in range(0, codes.shape[0], LONG_HELD):
+                            window_pass_ref(codes[c:c + LONG_HELD], qp,
+                                            *(a[c:c + LONG_HELD]
+                                              for a in args[:4]), m)
+
+            plain = self.cuda_ms(lambda: run("plain"), 1, warm=False)
+            rl = spec["rlens"].astype(np.int64)
+            top = np.maximum(spec["mreals"], m).astype(np.int64)
+            cells = int((rl * (top - np.maximum(spec["offs"], 0))).sum())
+            rows = len(rl)
+            nbytes = sum(int(c.numel()) for _, c, _ in parts) + rows * 28 \
+                + 8 * int(tab.shape[0])
+            bound_ms = self.bound(WINDOW_OPS_PER_CELL * cells, nbytes)[0]
+            widths = {W: int(c.shape[0]) for W, c, _ in parts}
+            line = []
+            for kernel in acc:
+                ms = self.cuda_ms(lambda: run(kernel), 5)
+                for i, v in enumerate((ms, plain, WINDOW_OPS_PER_CELL * cells,
+                                       nbytes)):
+                    acc[kernel][i] += v
+                line.append(f"{kernel} {ms:.3f} ms ({bound_ms / ms:.1%} of "
+                            "the bound)")
+            print(f"  91 kb query, {'reverse' if rev else 'forward'} "
+                  f"dispatch of {rows} rows (rows per width {widths}), "
+                  f"m={m}, {cells} cells: bound {bound_ms:.3f} ms; "
+                  + "; ".join(line) + f"; plain {plain:.3f} ms")
+            # the same dispatch with its rows repeated LONG_TILE times:
+            # enough warps to fill the card, where the dispatch alone
+            # leaves most of it idle
+            tiled = [(W, codes.repeat(LONG_TILE, 1),
+                      {k: v.repeat(LONG_TILE) for k, v in part.items()
+                       if k != "sel"}) for W, codes, part in parts]
+            line = []
+            for kernel in acc:
+                ms = self.cuda_ms(lambda: run(kernel, tiled), 3)
+                line.append(f"{kernel} {ms:.3f} ms "
+                            f"({LONG_TILE * bound_ms / ms:.1%} of the bound)")
+            print(f"    its rows {LONG_TILE} times over: " + "; ".join(line))
+            if rev:
+                self.k4_sweep(spec, parts, qp, tab, m, cells)
+            torch.cuda.empty_cache()
+        for kernel, (ms, plain, ops, nbytes) in acc.items():
+            self.ms[kernel], self.plain_ms[kernel] = ms, plain
+            self.work[kernel] = (ops, nbytes)
+
     def bound(self, ops: float, nbytes: float):
         """(least ms the card could take, the term that sets it)."""
         t_ops = ops / self.int32_ops * 1e3
@@ -2680,7 +2976,7 @@ sys.exit(rc)
 
 
 PHASES = ("device", "build", "kernels", "e2e", "multi", "genome", "times",
-          "trace")
+          "trace", "long")
 
 
 def main() -> int:

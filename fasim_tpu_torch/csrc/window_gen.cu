@@ -12,8 +12,9 @@
 // end column (kBig when only a phantom row attains it); end_col is the
 // first column < rlen attaining the best; under terms >= 0 the columns
 // after the first one whose max equals terms are cut off (sswNew.cpp:617);
-// a best <= 0 gives (0, -1, m - 1).  Real rows must be < 65,536 (the row
-// keys); longer queries take the int32 kernel of window.cu.
+// a best <= 0 gives (0, -1, m - 1).  At m <= 65,536 the sweep keys real
+// rows in 16 bits; longer queries (m <= 2**20) take its long form, whose
+// keys fold by chunks of 65,536 rows into (H << 20) | (0xFFFFF - row).
 //
 // What bounds it on this card: integer ALU throughput (no memory traffic
 // beyond the window codes, the per-row inputs, the score table, an L1/L2
@@ -31,18 +32,21 @@ extern "C" {
 // order int32[rows] the rows in the order they are paired, sorted by
 // offset, and n_first int32[1] the count of the short windows that lead
 // it, rlen <= Wp / 2 for Wp 64 and <= 3 Wp / 4 otherwise
-// (kernels/window.py:offset_order, K4_SHORT); out int32[rows, 3].  Needs
-// m <= 65536.
+// (kernels/window.py:offset_order, K4_SHORT); wide 0 the 16-bit row keys,
+// which need m <= 65,536, else the long form, which needs m <= 2**20; out
+// int32[rows, 3].
 int fasim_window_gen(const void* codes, int Wp, const void* tab,
                      int tab_rows, const void* offs, const void* mreals,
                      const void* terms, const void* rlens, const void* order,
-                     const void* n_first, int rows, int m, void* out,
-                     void* stream) {
+                     const void* n_first, int rows, int m, int wide,
+                     void* out, void* stream) {
   if (rows <= 0) return 0;
-  if (order == nullptr || n_first == nullptr || m > 65536 || tab_rows <= m)
+  if (order == nullptr || n_first == nullptr || tab_rows <= m ||
+      m > (wide ? kLongRows : kChunk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_pairs<false>(codes, Wp, tab, tab_rows, offs, mreals, terms,
-                             rlens, order, n_first, rows, m, out, stream);
+                             rlens, order, n_first, rows, m, wide, out,
+                             stream);
 }
 
 }  // extern "C"

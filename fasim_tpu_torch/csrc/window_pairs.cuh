@@ -38,6 +38,29 @@
 //    cut and the ends come from the per-column keys by L-lane reductions:
 //    a min for the cut column, then a max of (column max << 8) |
 //    (255 - column).
+//
+// Queries past 65,536 keyed rows (the long form, kLong; the wrappers take
+// it when m (K4) or the query rows (K6) pass 65,536): the cell step and its
+// 16-bit row keys stay as they are, and the keys fold by chunk.  A row
+// key's low half is 0xFFFF - i mod 2**16, so the keys of the rows [cb, cb
+// + 65,536) (a chunk, cb a multiple of 65,536) order (H, -row) within it.
+// At the first row of each later chunk a lane folds its keys into a
+// running best in the wide key (H << 20) | (0xFFFFF - row), K6's own
+// contract key (H <= 1,280 < 2**11, so it fits an int32), whose max keeps
+// the lower row on a tie, and starts the chunk's keys afresh (K4 folds on
+// real rows only: its phantom rows keep the packed max).  The ends read
+// the max of the running best and the last chunk's keys.  The fold is a
+// guarded step: the unguarded run stops where a lane of the warp meets a
+// chunk start, about once a chunk, and resumes after the warp's last lane
+// has.  Cost: registers (the running best, 2 * C a lane, and the split
+// run; ptxas on sm_90a: K4 63 / 63 / 80 -> 72 / 72 / 117 at 64 / 128 / 256
+// columns, K6 56 / 56 / 72 -> 72 / 72 / 95); the unguarded steps keep their
+// 5 operations a cell.  Rows must be < 2**20 (the wide key).  A wide key
+// in every cell step (2 operations a cell more) was the other design; the
+// fold leaves the step as it is.  At a 91 kb query on a small DNA the
+// dispatches leave the card mostly idle and a warp's serial sweep, a step
+// every ~110-130 ns, sets the time; more operations a step would not help
+// there, so the fold stays.
 #pragma once
 
 #include "window_s16.cuh"
@@ -47,6 +70,14 @@ namespace {
 using namespace fasim_s16;
 
 constexpr int kWarpsPerBlock = 4;
+constexpr int kChunk = 1 << 16;    // rows a 16-bit row key tells apart
+constexpr int kLongRows = 1 << 20;  // rows the long form's wide key holds
+
+// the wide key (H << 20) | (0xFFFFF - t) of a chunk key k = (H << 16) |
+// (0xFFFF - (t - cb)) of the chunk from row cb; 0 for no key
+__device__ __forceinline__ unsigned wide_key(unsigned k, int cb) {
+  return k ? ((k >> 16) << 20) + (0xF0000u - cb) + (k & 0xFFFFu) : 0u;
+}
 
 // per-window inputs, int32[rows] each
 struct PerRow {
@@ -58,7 +89,7 @@ struct PerRow {
 
 // Windows [lo, hi) of the reordered row list, two a segment of L lanes,
 // starting with the warp's segment 0 at pair `first`.
-template <int C, int L, bool kV1>
+template <int C, int L, bool kV1, bool kLong>
 __device__ __forceinline__ void run_pairs(
     int first, int lane, const uint8_t* __restrict__ codes, int stride,
     const uint2* __restrict__ tab, int tab_rows, PerRow pr,
@@ -91,6 +122,19 @@ __device__ __forceinline__ void run_pairs(
   Lane<C> w;
   w.init(codes, stride, ra, rb, col0);
   const int base = r0 - sub;  // the lane's row at step 0
+  // kLong: w's keys hold the rows of the chunk from cb, wide[h][k] the
+  // best of the chunks before it
+  int cb = r0 & ~(kChunk - 1);
+  unsigned wide[2][kLong ? C : 1] = {};
+  auto fold = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      wide[0][k] = max(wide[0][k], wide_key(w.st[k].ka, cb));
+      wide[1][k] = max(wide[1][k], wide_key(w.st[k].kb, cb));
+      w.st[k].ka = w.st[k].kb = 0;
+    }
+    cb = i;
+  };
 
   auto guarded = [&](int step) {
     unsigned in_g = __shfl_up_sync(kFull, w.out_g, 1, L);
@@ -104,6 +148,8 @@ __device__ __forceinline__ void run_pairs(
       const uint2 t = tab[i];
       const unsigned smask =
           (i < ma ? 0xFFFFu : 0u) | (i < mb ? 0xFFFF0000u : 0u);
+      if (kLong && (i & (kChunk - 1)) == 0 && i != cb && (kV1 || i < m))
+        fold(i);  // the first row of a later chunk
       if (kV1 || i < m)
         w.template row<true>(i, t, in_g, in_e, i < r1 ? zm : 0u, smask);
       else
@@ -111,19 +157,40 @@ __device__ __forceinline__ void run_pairs(
     }
   };
   int step = 0;
-  for (; step < min(fast_lo, nsteps); ++step) guarded(step);
-  if (step < fast_hi) {
-    uint2 t = tab[base + step];
-    for (; step < fast_hi; ++step) {
-      unsigned in_g = __shfl_up_sync(kFull, w.out_g, 1, L);
-      unsigned in_e = __shfl_up_sync(kFull, w.out_e, 1, L);
-      if (sub == 0) {
-        in_g = kM16;
-        in_e = 0;
+  // steps [step, stop) unguarded, the next row's table prefetched: every
+  // lane of the warp on a keyed row past both offsets (and, kLong, in the
+  // chunk of its previous row)
+  auto fast = [&](int stop) {
+    if (step < stop) {
+      uint2 t = tab[base + step];
+      for (; step < stop; ++step) {
+        unsigned in_g = __shfl_up_sync(kFull, w.out_g, 1, L);
+        unsigned in_e = __shfl_up_sync(kFull, w.out_e, 1, L);
+        if (sub == 0) {
+          in_g = kM16;
+          in_e = 0;
+        }
+        const uint2 tn = tab[base + step + 1];
+        w.template row<true>(base + step, t, in_g, in_e);
+        t = tn;
       }
-      const uint2 tn = tab[base + step + 1];
-      w.template row<true>(base + step, t, in_g, in_e);
-      t = tn;
+    }
+  };
+  for (; step < min(fast_lo, nsteps); ++step) guarded(step);
+  if (!kLong) {
+    fast(fast_hi);
+  } else {
+    // a lane meets the chunk start B on step B - base, so the warp's lanes
+    // (those with a window) on steps [B - bmax, B - bmin]: those run
+    // guarded, and no unguarded step crosses a chunk start
+    const int bmin = __reduce_min_sync(kFull, ra >= 0 ? base : kBig);
+    const int bmax = __reduce_max_sync(kFull, ra >= 0 ? base : -kBig);
+    while (step < fast_hi) {
+      // the first chunk start at or past the lowest lane's row
+      const int B = ((bmin + step - 1) | (kChunk - 1)) + 1;
+      fast(min(fast_hi, B - bmax));
+      for (const int e = min(fast_hi, B - bmin + 1); step < e; ++step)
+        guarded(step);
     }
   }
   for (; step < nsteps; ++step) guarded(step);
@@ -141,6 +208,12 @@ __device__ __forceinline__ void run_pairs(
     for (int k = 0; k < C; ++k) {
       int rmax, rrow, pmax;
       w.st[k].get(h, rmax, rrow, pmax);
+      if (kLong) {  // the wide keys of the earlier chunks and the last one
+        const unsigned key =
+            max(wide[h][k], wide_key(h ? w.st[k].kb : w.st[k].ka, cb));
+        rmax = static_cast<int>(key >> 20);
+        rrow = 0xFFFFF - static_cast<int>(key & 0xFFFFFu);
+      }
       cmax[k] = max(rmax, pmax);
       crow[k] = rmax >= pmax ? rrow : kBig;
     }
@@ -172,10 +245,10 @@ __device__ __forceinline__ void run_pairs(
   }
 }
 
-// One kernel per width: the rows [0, *n_first) of the reordered list take
-// the short layout (C1, L1) and the rest (C, L); whole warps take one
-// layout.
-template <int C, int L, int C1, int L1, bool kV1>
+// One kernel per width and form: the rows [0, *n_first) of the reordered
+// list take the short layout (C1, L1) and the rest (C, L); whole warps
+// take one layout.
+template <int C, int L, int C1, int L1, bool kV1, bool kLong>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 window_pairs_kernel(const uint8_t* __restrict__ codes, int stride,
                     const uint2* __restrict__ tab, int tab_rows, PerRow pr,
@@ -188,23 +261,23 @@ window_pairs_kernel(const uint8_t* __restrict__ codes, int stride,
   constexpr int kPer = 2 * kWarp / L1;  // windows a warp
   const int w0 = (lo + kPer - 1) / kPer;
   if (warp < w0) {
-    run_pairs<C1, L1, kV1>(warp * (kWarp / L1), lane, codes, stride, tab,
-                           tab_rows, pr, order, 0, lo, m, out);
+    run_pairs<C1, L1, kV1, kLong>(warp * (kWarp / L1), lane, codes, stride,
+                                  tab, tab_rows, pr, order, 0, lo, m, out);
     return;
   }
   warp -= w0;
   if (lo + warp * 2 * (kWarp / L) >= rows) return;
-  run_pairs<C, L, kV1>(warp * (kWarp / L), lane, codes, stride, tab,
-                       tab_rows, pr, order, lo, rows, m, out);
+  run_pairs<C, L, kV1, kLong>(warp * (kWarp / L), lane, codes, stride, tab,
+                              tab_rows, pr, order, lo, rows, m, out);
 }
 
-// The launch of one dispatch of a width class Wp in {64, 128, 256} (the C
-// entries' arguments; they check the rest).
-template <bool kV1>
-int launch_pairs(const void* codes, int Wp, const void* tab, int tab_rows,
-                 const void* offs, const void* mreals, const void* terms,
-                 const void* rlens, const void* order, const void* n_first,
-                 int rows, int m, void* out, void* stream) {
+// The launch of one dispatch of a width class Wp in {64, 128, 256} in one
+// form (the C entries' arguments; they check the rest).
+template <bool kV1, bool kLong>
+int launch_form(const void* codes, int Wp, const void* tab, int tab_rows,
+                const void* offs, const void* mreals, const void* terms,
+                const void* rlens, const void* order, const void* n_first,
+                int rows, int m, void* out, void* stream) {
   auto c = static_cast<const uint8_t*>(codes);
   auto t = static_cast<const uint2*>(tab);
   const PerRow pr{static_cast<const int32_t*>(offs),
@@ -222,17 +295,17 @@ int launch_pairs(const void* codes, int Wp, const void* tab, int tab_rows,
   switch (Wp) {
     // enough warps for any split; the surplus leaves at once
     case 64:  // 32 columns, 8 a warp; 64 columns, 4 a warp
-      window_pairs_kernel<4, 16, 4, 8, kV1>
+      window_pairs_kernel<4, 16, 4, 8, kV1, kLong>
           <<<grid((rows + 7) / 8 + (rows + 3) / 4 + 1), block, 0, st>>>(
               c, Wp, t, tab_rows, pr, od, nf, rows, m, dst);
       break;
     case 128:  // 96 and 128 columns, 2 a warp
-      window_pairs_kernel<4, 32, 3, 32, kV1>
+      window_pairs_kernel<4, 32, 3, 32, kV1, kLong>
           <<<grid((rows + 1) / 2 + 1), block, 0, st>>>(
               c, Wp, t, tab_rows, pr, od, nf, rows, m, dst);
       break;
     case 256:  // 192 and 256 columns, 2 a warp
-      window_pairs_kernel<8, 32, 6, 32, kV1>
+      window_pairs_kernel<8, 32, 6, 32, kV1, kLong>
           <<<grid((rows + 1) / 2 + 1), block, 0, st>>>(
               c, Wp, t, tab_rows, pr, od, nf, rows, m, dst);
       break;
@@ -240,6 +313,21 @@ int launch_pairs(const void* codes, int Wp, const void* tab, int tab_rows,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of one dispatch: the long form when `wide`, else the 16-bit
+// row keys (the entries check the rows each form takes).
+template <bool kV1>
+int launch_pairs(const void* codes, int Wp, const void* tab, int tab_rows,
+                 const void* offs, const void* mreals, const void* terms,
+                 const void* rlens, const void* order, const void* n_first,
+                 int rows, int m, int wide, void* out, void* stream) {
+  return wide ? launch_form<kV1, true>(codes, Wp, tab, tab_rows, offs,
+                                       mreals, terms, rlens, order, n_first,
+                                       rows, m, out, stream)
+              : launch_form<kV1, false>(codes, Wp, tab, tab_rows, offs,
+                                        mreals, terms, rlens, order,
+                                        n_first, rows, m, out, stream);
 }
 
 }  // namespace

@@ -13,9 +13,11 @@
 // whatever its code (the rows below a window's offset).
 //
 // Statistics without a branch: on real rows each half keeps a 32-bit key
-// (H << 16) | (0xFFFF - row) per column (a prmt and a max), whose max is the
-// column's real-row max and its lowest row, so real rows must be < 65,536;
-// phantom rows keep only a packed max.
+// (H << 16) | (0xFFFF - row mod 65,536) per column (a prmt and a max),
+// whose max is the column's real-row max and its lowest row among rows
+// that agree above their low 16 bits: all of them below 65,536 (K3, and
+// K4 and K6 at m <= 65,536); the long form of window_pairs.cuh folds the
+// keys by chunks of 65,536 rows.  Phantom rows keep only a packed max.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,8 +50,9 @@ __device__ __forceinline__ unsigned selector(unsigned ca, unsigned cb) {
 }
 
 // A column's statistics for both windows: on real rows the keys
-// (H << 16) | (0xFFFF - row), whose max holds the real-row max and its
-// lowest row; on phantom rows the packed max.
+// (H << 16) | (0xFFFF - row mod 65,536), whose max holds the real-row max
+// and its lowest row within a chunk of 65,536 rows; on phantom rows the
+// packed max.
 struct ColStats {
   unsigned ka = 0, kb = 0, pm = 0;
   __device__ __forceinline__ void real(unsigned hv, unsigned tk) {

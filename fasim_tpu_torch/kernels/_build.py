@@ -49,13 +49,10 @@ SIGNATURES = {
     "fasim_scan_codes_scratch": [_I, _I, _I],
     "fasim_scan_codes_blocks_per_sm": [_I, _I, _I],
     "fasim_window_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "fasim_window_general": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
-                             _P],
-    "fasim_window_gen": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                         _P],
-    "fasim_window_v1": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                        _P],
-    "fasim_window_keys": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
+    "fasim_window_gen": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _P, _P],
+    "fasim_window_v1": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P, _P],
     "fasim_sim_forward": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "fasim_sim_forward_smem": [_I],
 }

@@ -36,8 +36,8 @@ FASIM_SCAN16=1 (at construction) runs the scan passes inside the int16
 gate on K7; FASIM_WIN_V1=1 (at setup_windows) runs every window pass on
 K6; FASIM_WIN_V3=0 (at setup_windows) sends the uniform forward specs to
 K4 instead of K3.  Queries longer than K3_MAX_M rows send them to K4 too
-(K3 keeps row indices in 16 bits), whose wrapper runs them on its int32
-kernel.
+(K3 keeps row indices in 16 bits), whose wrapper runs them, and K6's
+wrapper every pass of such a query, on the pair sweep's long form.
 """
 
 from __future__ import annotations

@@ -8,11 +8,12 @@ csrc/window_fwd.cu and K4 csrc/window_gen.cu, both two windows per
 register in 16-bit cells (csrc/window_s16.cuh), K4 with each window swept
 from its own offset (the pair sweep csrc/window_pairs.cuh, which K6
 shares); their headers say what bounds them on the card and how the
-designs meet that.  Both keep query rows in 16 bits, so queries
-longer than K3_MAX_M rows take K4's int32 kernel csrc/window.cu
-(`window_general32`), routed by shape.  All return the ends int32[rows,
-3] = (best, end_col, end_row) directly.  `window_pass_ref` is their plain
-PyTorch version, ported from kernels/xla.py:window_pass_xla.
+designs meet that.  Both key query rows in 16 bits; queries longer than
+K3_MAX_M rows take the pair sweep's long form (`window_general_long`,
+which folds the keys by chunks of 65,536 rows), routed by shape.  All
+return the ends int32[rows, 3] = (best, end_col, end_row) directly.
+`window_pass_ref` is their plain PyTorch version, ported from
+kernels/xla.py:window_pass_xla.
 
 Also here: the window query rows (`window_qp`, xla.py:_window_qp), the
 per-row score table of K3 and K4 (`score_table`) and their row orders
@@ -38,8 +39,10 @@ _BIG = 1 << 30
 # kernel widths (each kernel lays out each width in its own way)
 WIDTHS = (64, 128, 256)
 # K3 and K4 keep a column's lowest attaining row in 16 bits: query rows
-# < 2**16 (longer queries: window_general32)
+# < 2**16 (longer queries: K4's long form, window_general_long)
 K3_MAX_M = 1 << 16
+# the pair sweep's long form keys rows t < 2**20 (v1's key, K6's contract)
+LONG_MAX_ROWS = 1 << 20
 # K3 runs the 64-column windows with rlen <= 32 at 32 columns
 NARROW = 32
 # K4 runs each width class's short windows, rlen <= K4_SHORT[W], at that
@@ -270,54 +273,75 @@ def window_fwd(codes: torch.Tensor, qp: torch.Tensor, tab: torch.Tensor,
     return out
 
 
+def _launch_pairs(entry: str, codes: torch.Tensor, offs: torch.Tensor,
+                  terms: torch.Tensor, rlens: torch.Tensor,
+                  mreals: torch.Tensor, m: int, tab: torch.Tensor,
+                  tab_rows: int, wide: bool) -> torch.Tensor:
+    """Ends int32[rows, 3] of one checked dispatch on the pair sweep
+    (csrc/window_pairs.cuh) through its C entry, K4's fasim_window_gen or
+    K6's fasim_window_v1, in its long form when `wide`, in K4's row order
+    `offset_order`."""
+    rows, W = codes.shape
+    order, n_first = offset_order(rlens, offs, m, K4_SHORT[W])
+    out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
+    _run(entry, codes, codes.data_ptr(), W, tab.data_ptr(), tab_rows,
+         offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),
+         rlens.data_ptr(), order.data_ptr(), n_first.data_ptr(), rows, m,
+         int(wide), out.data_ptr())
+    return out
+
+
+def _general(name: str, codes: torch.Tensor, qp: torch.Tensor,
+             offs: torch.Tensor, terms: torch.Tensor, rlens: torch.Tensor,
+             mreals: torch.Tensor, m: int, tab: torch.Tensor,
+             wide: bool) -> torch.Tensor:
+    _check(name, codes, qp,
+           {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
+    _check_tab(name, tab, codes, m)
+    return _launch_pairs("fasim_window_gen", codes, offs, terms, rlens,
+                         mreals, m, tab, tab.shape[0], wide)
+
+
 def window_general(codes: torch.Tensor, qp: torch.Tensor,
                    offs: torch.Tensor, terms: torch.Tensor,
                    rlens: torch.Tensor, mreals: torch.Tensor, m: int,
                    tab: torch.Tensor) -> torch.Tensor:
     """K4: ends int32[rows, 3] with per-row offs, terms and mreals.  qp is
     the window query rows, tab = score_table(qp) (the engine keeps both).
-    CPU tensors take `window_pass_ref` on qp; CUDA tensors launch the
-    16-bit kernel (counted in `window_general.launches`), which reads the
-    query through tab, or, for m > K3_MAX_M, `window_general32`."""
+    Queries longer than K3_MAX_M rows go to `window_general_long`.  Else
+    CPU tensors take `window_pass_ref` on qp; CUDA tensors launch the pair
+    sweep with 16-bit row keys (counted in `window_general.launches`),
+    which reads the query through tab."""
+    if m > K3_MAX_M:
+        return window_general_long(codes, qp, offs, terms, rlens, mreals, m,
+                                   tab)
     if not _on_card("window_general", codes):
         return window_pass_ref(codes, qp, offs, terms, rlens, mreals, m)
-    if m > K3_MAX_M:
-        return window_general32(codes, qp, offs, terms, rlens, mreals, m)
-    _check("window_general", codes, qp,
-           {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
-    _check_tab("window_general", tab, codes, m)
-    rows, W = codes.shape
-    order, n_first = offset_order(rlens, offs, m, K4_SHORT[W])
-    out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
-    _run("fasim_window_gen", codes, codes.data_ptr(), W, tab.data_ptr(),
-         tab.shape[0], offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),
-         rlens.data_ptr(), order.data_ptr(), n_first.data_ptr(), rows, m,
-         out.data_ptr())
+    out = _general("window_general", codes, qp, offs, terms, rlens, mreals,
+                   m, tab, False)
     _build.count_launch(window_general)
     return out
 
 
-def window_general32(codes: torch.Tensor, qp: torch.Tensor,
-                     offs: torch.Tensor, terms: torch.Tensor,
-                     rlens: torch.Tensor, mreals: torch.Tensor,
-                     m: int) -> torch.Tensor:
-    """K4 in int32 cells at any query length, one window a warp
-    (csrc/window.cu): what `window_general` launches for m > K3_MAX_M.
-    CPU tensors take `window_pass_ref`; CUDA tensors launch the kernel
-    (counted in `window_general32.launches`)."""
-    if not _on_card("window_general32", codes):
+def window_general_long(codes: torch.Tensor, qp: torch.Tensor,
+                        offs: torch.Tensor, terms: torch.Tensor,
+                        rlens: torch.Tensor, mreals: torch.Tensor, m: int,
+                        tab: torch.Tensor) -> torch.Tensor:
+    """K4's long form, the same pass with the row keys folded by chunks of
+    65,536 rows (csrc/window_pairs.cuh): what `window_general` runs for m >
+    K3_MAX_M; called directly, it runs any m <= LONG_MAX_ROWS.  CPU
+    tensors take `window_pass_ref`; CUDA tensors launch the kernel (counted
+    in `window_general_long.launches`)."""
+    if not _on_card("window_general_long", codes):
         return window_pass_ref(codes, qp, offs, terms, rlens, mreals, m)
-    _check("window_general32", codes, qp,
-           {"offs": offs, "terms": terms, "rlens": rlens, "mreals": mreals})
-    rows = codes.shape[0]
-    out = torch.empty(rows, 3, dtype=torch.int32, device=codes.device)
-    _run("fasim_window_general", codes, codes.data_ptr(), codes.shape[1],
-         qp.data_ptr(), qp.stride(0), offs.data_ptr(), mreals.data_ptr(),
-         terms.data_ptr(), rlens.data_ptr(), rows, m, out.data_ptr())
-    _build.count_launch(window_general32)
+    if m > LONG_MAX_ROWS:
+        raise ValueError(f"window_general_long: m = {m} > {LONG_MAX_ROWS}")
+    out = _general("window_general_long", codes, qp, offs, terms, rlens,
+                   mreals, m, tab, True)
+    _build.count_launch(window_general_long)
     return out
 
 
 window_fwd.launches = 0
 window_general.launches = 0
-window_general32.launches = 0
+window_general_long.launches = 0

@@ -6,12 +6,12 @@ _window_call) with the glue around it: `decode_key` (tpu.py:_decode_key),
 v1 row layouts of window_pass, _window_specs_call and _window_specs_call2
 (`v1_rows`).  `window_v1` is the pass: ends int32[n, 3] of one width
 class.  On the card it launches K6's kernel (csrc/window_v1.cu:
-fasim_window_v1, K4's 16-bit pair sweep of csrc/window_pairs.cuh with v1's
-statistics and the ends reduced in the kernel), or, when the keyed rows
-outgrow 16 bits, the long-query kernel `window_keys` (fasim_window_keys,
-int32 keys) and the ends glue (`v1_ends`).  The headers of
-csrc/window_v1.cu say what bounds each kernel on the card and how the
-designs meet that.
+fasim_window_v1, K4's pair sweep of csrc/window_pairs.cuh with v1's
+statistics and the ends reduced in the kernel), with 16-bit row keys, or,
+when the query rows pass K6_MAX_NQ, in the sweep's long form
+(`window_v1_long`, the keys folded by chunks of 65,536 rows).  The header
+of csrc/window_v1.cu says what bounds the kernel on the card and how the
+design meets that.
 
 The plain chain is `v1_ends` on `window_keys_ref`, the Pallas kernel's
 steps one query row at a time over (rows, W): a stats key per window
@@ -27,16 +27,15 @@ import torch
 from ..config import GAP_EXTEND, GAP_OPEN
 
 from . import _build
-from .window import (K4_SHORT, WIDTHS, _check_tab, _on_card, _run,
-                     offset_order)
+from .window import (LONG_MAX_ROWS, WIDTHS, _check_tab, _launch_pairs,
+                     _on_card)
 
 KT_BITS = 20
 KT_MASK = (1 << KT_BITS) - 1
 _NEG = -(2 ** 30)
-# K6's kernel keys the rows t < min(mreal, nq) in 16 bits: every such row
-# below K6_MAX_MREAL (nq <= K6_MAX_MREAL, else every mreal); past it the
-# long-query kernel window_keys
-K6_MAX_MREAL = 1 << 16
+# K6's kernel keys the rows t < min(mreal, nq) in 16 bits while the query
+# rows nq <= K6_MAX_NQ; longer queries take its long form, window_v1_long
+K6_MAX_NQ = 1 << 16
 
 def query_rows(m: int) -> int:
     """Query rows the v1 pass streams: every phantom bound mreal <= m + 15
@@ -102,33 +101,6 @@ def _check_ints(name: str, codes: torch.Tensor, arrays: dict) -> None:
                              f"on {codes.device}")
 
 
-def window_keys(codes: torch.Tensor, qc: torch.Tensor, offs: torch.Tensor,
-                mreals: torch.Tensor, m: int, subw: int = 0) -> torch.Tensor:
-    """K6's long-query kernel: keys int32[R, W] (see `window_keys_ref`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `window_keys.launches`); anything else raises."""
-    if not _on_card("window_keys", codes):
-        return window_keys_ref(codes, qc, offs, mreals, m, subw)
-    R, W = codes.shape
-    if (W, subw) not in ((128, 0), (256, 0), (128, 64)) \
-            or codes.dtype != torch.uint8 or not codes.is_contiguous():
-        raise ValueError("window_keys: codes must be contiguous uint8[rows, "
-                         "W] with W 128 or 256 (subw 0), or 128 (subw 64)")
-    nwin = W // (subw or W)
-    _check_ints("window_keys", codes, {"qc": (qc, qc.numel()),
-                                       "offs": (offs, R * nwin),
-                                       "mreals": (mreals, R * nwin)})
-    out = torch.empty(R, W, dtype=torch.int32, device=codes.device)
-    _run("fasim_window_keys", codes, codes.data_ptr(), R, W, subw,
-         qc.data_ptr(), qc.shape[0], offs.data_ptr(), mreals.data_ptr(), m,
-         out.data_ptr())
-    _build.count_launch(window_keys)
-    return out
-
-
-window_keys.launches = 0
-
-
 def decode_key(mk: torch.Tensor):
     """Stats key -> (column max, first attaining row) (tpu.py:_decode_key)."""
     return mk >> KT_BITS, KT_MASK - (mk & KT_MASK)
@@ -178,16 +150,40 @@ def v1_rows(codes: torch.Tensor, offs: torch.Tensor,
 
 def v1_ends(codes: torch.Tensor, qc: torch.Tensor, offs: torch.Tensor,
             terms: torch.Tensor, rlens: torch.Tensor, mreals: torch.Tensor,
-            m: int, keys=window_keys_ref) -> torch.Tensor:
-    """Ends int32[n, 3] of n windows of one width class (codes uint8[n, w],
-    w 64, 128 or 256; per-window int32[n] offs, terms, rlens, mreals)
-    through a keys pass in the rows of `v1_rows`, the ends reduced per
-    window over its w lanes: K6's plain chain (keys = window_keys_ref) or
-    its long-query route (keys = window_keys)."""
+            m: int) -> torch.Tensor:
+    """K6's plain chain: ends int32[n, 3] of n windows of one width class
+    (codes uint8[n, w], w 64, 128 or 256; per-window int32[n] offs, terms,
+    rlens, mreals) through `window_keys_ref` in the rows of `v1_rows`, the
+    ends reduced per window over its w lanes."""
     n, w = codes.shape
     rows, o, mr, subw = v1_rows(codes, offs, mreals)
-    mx, mrow = decode_key(keys(rows, qc, o, mr, m, subw).reshape(-1, w)[:n])
+    mx, mrow = decode_key(window_keys_ref(rows, qc, o, mr, m,
+                                          subw).reshape(-1, w)[:n])
     return ends_from_stats(mx, mrow, terms, rlens, m)
+
+
+def _v1(name: str, codes: torch.Tensor, qc: torch.Tensor,
+        offs: torch.Tensor, terms: torch.Tensor, rlens: torch.Tensor,
+        mreals: torch.Tensor, m: int, tab: torch.Tensor,
+        wide: bool) -> torch.Tensor:
+    """K6's checks, then its launch in the form `wide` picks (none for no
+    windows)."""
+    n, W = codes.shape
+    if W not in WIDTHS or codes.dtype != torch.uint8 \
+            or not codes.is_contiguous():
+        raise ValueError(f"{name}: codes must be contiguous uint8[rows, W] "
+                         f"with W in {WIDTHS}")
+    nq = qc.numel()
+    _check_ints(name, codes, {
+        "qc": (qc, nq), "offs": (offs, n), "terms": (terms, n),
+        "rlens": (rlens, n), "mreals": (mreals, n)})
+    if n == 0:
+        return torch.empty(0, 3, dtype=torch.int32, device=codes.device)
+    _check_tab(name, tab, codes, nq - 1)
+    if nq <= m:
+        raise ValueError(f"{name}: {nq} query rows for m = {m}")
+    return _launch_pairs("fasim_window_v1", codes, offs, terms, rlens,
+                         mreals, m, tab, nq, wide)
 
 
 def window_v1(codes: torch.Tensor, qc: torch.Tensor, offs: torch.Tensor,
@@ -196,37 +192,41 @@ def window_v1(codes: torch.Tensor, qc: torch.Tensor, offs: torch.Tensor,
     """K6: ends int32[n, 3] of n windows of one width class (codes uint8[n,
     W], W in WIDTHS; per-window int32[n] offs, terms, rlens, mreals; qc
     int32[nq] the query codes, -1 past m; tab = score_table of the same
-    query, at least nq rows).  CPU tensors take the plain chain `v1_ends`;
-    CUDA tensors launch K6's kernel (counted in `window_v1.launches`), or,
-    when a keyed row min(mreal, nq) - 1 reaches K6_MAX_MREAL, `v1_ends`
-    on the long-query kernel `window_keys`.  The largest mreal is read
-    back from the card only when nq > K6_MAX_MREAL."""
+    query, at least nq rows).  Query rows nq > K6_MAX_NQ go to
+    `window_v1_long` (by shape: nothing is read back from the card).  Else
+    CPU tensors take the plain chain `v1_ends`; CUDA tensors launch K6's
+    kernel with 16-bit row keys (counted in `window_v1.launches`)."""
+    if qc.numel() > K6_MAX_NQ:
+        return window_v1_long(codes, qc, offs, terms, rlens, mreals, m, tab)
     if not _on_card("window_v1", codes):
         return v1_ends(codes, qc, offs, terms, rlens, mreals, m)
-    n, W = codes.shape
-    if W not in WIDTHS or codes.dtype != torch.uint8 \
-            or not codes.is_contiguous():
-        raise ValueError("window_v1: codes must be contiguous uint8[rows, W] "
-                         f"with W in {WIDTHS}")
-    nq = qc.numel()
-    _check_ints("window_v1", codes, {
-        "qc": (qc, nq), "offs": (offs, n), "terms": (terms, n),
-        "rlens": (rlens, n), "mreals": (mreals, n)})
-    if n == 0:
-        return torch.empty(0, 3, dtype=torch.int32, device=codes.device)
-    if nq > K6_MAX_MREAL and int(mreals.max()) > K6_MAX_MREAL:
-        return v1_ends(codes, qc, offs, terms, rlens, mreals, m, window_keys)
-    _check_tab("window_v1", tab, codes, nq - 1)
-    if nq <= m:
-        raise ValueError(f"window_v1: {nq} query rows for m = {m}")
-    order, n_first = offset_order(rlens, offs, m, K4_SHORT[W])
-    out = torch.empty(n, 3, dtype=torch.int32, device=codes.device)
-    _run("fasim_window_v1", codes, codes.data_ptr(), W, tab.data_ptr(), nq,
-         offs.data_ptr(), mreals.data_ptr(), terms.data_ptr(),
-         rlens.data_ptr(), order.data_ptr(), n_first.data_ptr(), n, m,
-         out.data_ptr())
-    _build.count_launch(window_v1)
+    out = _v1("window_v1", codes, qc, offs, terms, rlens, mreals, m, tab,
+              False)
+    if len(out):
+        _build.count_launch(window_v1)
+    return out
+
+
+def window_v1_long(codes: torch.Tensor, qc: torch.Tensor,
+                   offs: torch.Tensor, terms: torch.Tensor,
+                   rlens: torch.Tensor, mreals: torch.Tensor, m: int,
+                   tab: torch.Tensor) -> torch.Tensor:
+    """K6's long form, the same pass with the row keys folded by chunks of
+    65,536 rows (csrc/window_pairs.cuh): what `window_v1` runs for nq >
+    K6_MAX_NQ; called directly, it runs any nq <= LONG_MAX_ROWS.  CPU
+    tensors take `v1_ends`; CUDA tensors launch the kernel (counted in
+    `window_v1_long.launches`)."""
+    if not _on_card("window_v1_long", codes):
+        return v1_ends(codes, qc, offs, terms, rlens, mreals, m)
+    if qc.numel() > LONG_MAX_ROWS:
+        raise ValueError(f"window_v1_long: {qc.numel()} query rows > "
+                         f"{LONG_MAX_ROWS}")
+    out = _v1("window_v1_long", codes, qc, offs, terms, rlens, mreals, m,
+              tab, True)
+    if len(out):
+        _build.count_launch(window_v1_long)
     return out
 
 
 window_v1.launches = 0
+window_v1_long.launches = 0

@@ -21,6 +21,9 @@ from fasim_tpu_torch.kernels import window
 from fasim_tpu_torch.kernels.engine import TorchScanEngine
 
 
+CHUNK = 1 << 16  # rows a 16-bit row key tells apart
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _few_threads():
     prev = torch.get_num_threads()
@@ -81,12 +84,34 @@ def test_window_qp_matches_xla():
     np.testing.assert_array_equal(window.window_qp(rna), _window_qp(rna))
 
 
+def _long_rows(rng, q, m, R, W):
+    """Window rows for a query past 65,536 rows: offsets within 2,000 rows
+    of 65,536 on both sides (up to m), mreals from below 65,536 to m + 15,
+    and half the windows copying the query codes q from their offset on
+    (15% mutated) -> (codes, offs, mreals)."""
+    offs = rng.integers(CHUNK - 2000, min(m, CHUNK + 2000), R).astype(
+        np.int32)
+    mreals = np.minimum(offs + rng.integers(1, 4000, R), m + 15).astype(
+        np.int32)
+    mreals[::3] = m + rng.integers(0, 16, len(mreals[::3]))
+    codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
+    for r in range(0, R, 2):
+        piece = q[offs[r]:offs[r] + W].copy()
+        muts = rng.random(len(piece)) < 0.15
+        piece[muts] = rng.integers(0, 5, int(muts.sum()))
+        codes[r, :len(piece)] = piece
+    return codes, offs, mreals
+
+
+@pytest.mark.parametrize("m", [143, CHUNK + 1, 68000])
 @pytest.mark.parametrize("rev", [False, True])
-def test_window_pass_matches_xla(rev):
-    """Codes interface with random offs, terms, rlens and mreals."""
-    rng = np.random.default_rng(21 + rev)
-    m = 143
-    xla, port = _engines(_rna(rng, m))
+def test_window_pass_matches_xla(rev, m):
+    """Codes interface with random offs, terms, rlens and mreals; at a query
+    just past 65,536 rows and at 68,000 too (K4's long form on the card),
+    with offsets and mreals on both sides of 65,536."""
+    rng = np.random.default_rng(21 + rev + (m > 143) * m)
+    rna = _rna(rng, m)
+    xla, port = _engines(rna)
     R, W = 29, 128
     codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
     rlens = rng.integers(4, W + 1, R).astype(np.int32)
@@ -94,6 +119,9 @@ def test_window_pass_matches_xla(rev):
     terms = np.where(rng.random(R) < 0.5, -1,
                      rng.integers(5, 60, R)).astype(np.int32)
     mreals = (m + rng.integers(0, 16, R)).astype(np.int32)
+    if m > CHUNK:
+        q = rules.SSW_ENC[rna[::-1] if rev else rna]
+        codes, offs, mreals = _long_rows(rng, q, m, R, W)
     a = np.asarray(xla.window_pass(codes, offs, terms, rlens, mreals,
                                    rev=rev))
     b = port.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
@@ -289,6 +317,29 @@ def test_align_chain_matches_align_window_py():
     assert n_checked >= 8
 
 
+def test_long_forms_refuse_rows_past_their_key(monkeypatch):
+    """On the card the long forms key rows t < LONG_MAX_ROWS (v1's 20-bit
+    row key): a query past it raises before any launch."""
+    from fasim_tpu_torch.kernels import window_v1
+
+    entries = []
+    for mod in (window, window_v1):
+        monkeypatch.setattr(mod, "_on_card", lambda name, codes: True)
+    monkeypatch.setattr(window, "_run",
+                        lambda entry, codes, *args: entries.append(entry))
+    m = window.LONG_MAX_ROWS + 1
+    codes = torch.zeros(2, 64, dtype=torch.uint8)
+    ints = torch.zeros(2, dtype=torch.int32)
+    qp = torch.zeros(3, m + 63, dtype=torch.int32)
+    tab = torch.zeros(m + 63, 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="window_general_long: m = "):
+        window.window_general(codes, qp, ints, ints, ints, ints, m, tab)
+    with pytest.raises(ValueError, match="window_v1_long: .* query rows"):
+        window_v1.window_v1(codes, qp[0, :m + 15].contiguous(), ints, ints,
+                            ints, ints, m, tab)
+    assert entries == []
+
+
 def test_window_kernels_reject_other_devices():
     meta = torch.device("meta")
     codes = torch.zeros(2, 64, dtype=torch.uint8, device=meta)
@@ -300,22 +351,26 @@ def test_window_kernels_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         window.window_general(codes, qp, rows, rows, rows, rows, 10, tab)
     with pytest.raises(ValueError, match="unsupported device"):
-        window.window_general32(codes, qp, rows, rows, rows, rows, 10)
+        window.window_general_long(codes, qp, rows, rows, rows, rows, 10,
+                                   tab)
 
 
 @pytest.mark.parametrize("m,want", [(window.K3_MAX_M, "window_fwd"),
                                     (window.K3_MAX_M + 1, "window_general")])
 def test_k3_gate_at_its_query_length(m, want, monkeypatch):
     """Uniform forward specs at the longest query K3 takes go to K3, one
-    row longer to K4; both equal XLA."""
+    row longer to K4, whose wrapper runs them on its long form
+    (window_general_long); both equal XLA."""
     calls = []
-    real = getattr(engine_mod, want)
+    for mod, name in ((engine_mod, want),
+                      (window, "window_general_long")):
+        real = getattr(mod, name)
 
-    def spy(*args):
-        calls.append(want)
-        return real(*args)
+        def spy(*args, _name=name, _real=real):
+            calls.append(_name)
+            return _real(*args)
 
-    monkeypatch.setattr(engine_mod, want, spy)
+        monkeypatch.setattr(mod, name, spy)
     rng = np.random.default_rng(m)
     rna = _rna(rng, m)
     scans = rules.scan_list(0, 0)
@@ -325,7 +380,8 @@ def test_k3_gate_at_its_query_length(m, want, monkeypatch):
     a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=False))
     c = port.window_pass_specs(segs, lens, spec, rev=False)
     np.testing.assert_array_equal(c, a)
-    assert calls == [want]
+    assert calls == [want] + (["window_general_long"] if m > window.K3_MAX_M
+                              else [])
 
 
 def test_score_table_matches_window_qp():
@@ -449,16 +505,17 @@ def test_window_best_fits_int16(m, rows, width, seed, match_run):
     assert (ends[:, 0] <= 5 * np.minimum(rlens, m)).all()
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_pair_order_by_offset_round_trip(seed):
     """K4's row order for each width class: a permutation with the rows of
     rlen <= K4_SHORT[W] first (their count returned), each part sorted by
     offset clamped to [0, m], rows of equal offset in their original
-    order; at a query length whose key outgrows int16 too."""
+    order; at a query length whose key outgrows int16 too, and at one
+    past 65,536 rows (the long form's), offsets past 65,535 included."""
     rng = np.random.default_rng(seed)
     rows = 41
-    m = (10, 16383, 20000)[seed]
-    W = window.WIDTHS[seed]
+    m = (10, 16383, 20000, 91068)[seed]
+    W = window.WIDTHS[seed % 3]
     short = window.K4_SHORT[W]
     rlens = rng.integers(1, W + 1, rows).astype(np.int32)
     offs = rng.integers(-2, m + 3, rows).astype(np.int32)
@@ -474,18 +531,18 @@ def test_pair_order_by_offset_round_trip(seed):
 
 
 @pytest.mark.parametrize("m,want", [
-    (window.K3_MAX_M, "fasim_window_gen"),
-    (window.K3_MAX_M + 1, "fasim_window_general")])
+    (window.K3_MAX_M, ("fasim_window_gen", 0)),
+    (window.K3_MAX_M + 1, ("fasim_window_gen", 1))])
 def test_k4_routes_by_query_length(m, want, monkeypatch):
     """K4's wrapper on the card (kernels monkeypatched): queries of up to
-    K3_MAX_M rows launch the 16-bit kernel and count in
-    window_general.launches, longer ones the int32 kernel of window.cu and
-    count in window_general32.launches."""
+    K3_MAX_M rows launch the pair sweep with 16-bit row keys (wide 0) and
+    count in window_general.launches, longer ones its long form (wide 1)
+    and count in window_general_long.launches."""
     entries = []
     monkeypatch.setattr(window, "_on_card", lambda name, codes: True)
-    monkeypatch.setattr(window, "_run",
-                        lambda entry, codes, *args: entries.append(entry))
-    for fn in (window.window_general, window.window_general32):
+    monkeypatch.setattr(window, "_run", lambda entry, codes, *args:
+                        entries.append((entry, args[-2])))
+    for fn in (window.window_general, window.window_general_long):
         monkeypatch.setattr(fn, "launches", 0)
     rows = 6
     qp = torch.from_numpy(window.window_qp(_rna(np.random.default_rng(m),
@@ -496,9 +553,9 @@ def test_k4_routes_by_query_length(m, want, monkeypatch):
                                 window.score_table(qp))
     assert out.shape == (rows, 3)
     assert entries == [want]
-    gen = want == "fasim_window_gen"
+    gen = want[1] == 0
     assert (window.window_general.launches,
-            window.window_general32.launches) == (int(gen), int(not gen))
+            window.window_general_long.launches) == (int(gen), int(not gen))
 
 
 @settings(max_examples=30, deadline=None)
@@ -556,16 +613,26 @@ def _max_relu(a: int, b: int) -> int:
     return _pack(*[max(_s16(a >> s), _s16(b >> s), 0) for s in (0, 16)])
 
 
+def _wide_key(k: int, cb: int) -> int:
+    """window_pairs.cuh's wide_key: the chunk key k = (H << 16) | (0xFFFF
+    - (t - cb)) as (H << 20) | (0xFFFFF - t); 0 for no key."""
+    return ((k >> 16) << 20) + (0xF0000 - cb) + (k & 0xFFFF) if k else 0
+
+
 def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m, v1=False,
-                   with_columns=False):
+                   with_columns=False, long=False):
     """Bit-level model of window_pairs.cuh's pair of windows (A low, B high
     half), columns in order (the wavefront only reorders the cells):
     the sweep from the lower offset to the larger mreal with the other
     half on the zero-score code until its own offset, the s16x2 cell, the
-    row keys and the phantom max (K4) or the row keys on the phantom rows
-    too (v1: K6), each half's masked past its mreal, and the cut and ends
-    reductions.  -> [(best, end_col, end_row)] for A and B, and with
-    with_columns each half's per-column [(column max, its row)] too."""
+    row keys (their low half 0xFFFF - row mod 2**16) and the phantom max
+    (K4) or the row keys on the phantom rows too (v1: K6), each half's
+    masked past its mreal, and the cut and ends reductions.  With long,
+    the long form: at the first row of each later chunk of 65,536 rows (a
+    keyed one: K4 real rows only) the keys fold into the running best wide
+    key and start afresh, and the ends read the max of both.  -> [(best,
+    end_col, end_row)] for A and B, and with with_columns each half's
+    per-column [(column max, its row)] too."""
     M16, M4, TOP, MIN = 0xFFF0FFF0, 0xFFFCFFFC, 0xC000C000, 0x80008000
     W = codes.shape[1]
     s = [min(max(int(o), 0), m) for o in offs]
@@ -576,10 +643,17 @@ def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m, v1=False,
            for a, b in zip(codes[0], codes[1])]
     g, f = [M16] * W, [TOP] * W
     ka, kb, pm = [0] * W, [0] * W, [0] * W
+    wa, wb = [0] * W, [0] * W  # long: the best of the earlier chunks
+    cb = r0 & ~0xFFFF  # long: the chunk of ka and kb
     for i in range(r0, top):
+        if long and i & 0xFFFF == 0 and i != cb and (v1 or i < m):
+            for k in range(W):
+                wa[k] = max(wa[k], _wide_key(ka[k], cb))
+                wb[k] = max(wb[k], _wide_key(kb[k], cb))
+            ka, kb, cb = [0] * W, [0] * W, i
         lo, hi = int(words[i, 0]), int(words[i, 1])
         gl, el, diag = M16, 0, M16  # column -1
-        tk = 0xFFFF - i
+        tk = (0xFFFF - i) & 0xFFFFFFFF
         for k in range(W):
             sc = _prmt(lo, hi, sel[k] | (zm if i < r1 else 0))
             el = _addmax(el, M4, gl)
@@ -600,10 +674,13 @@ def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m, v1=False,
         cmax, crow = [], []
         for k in range(W):
             key = kb[k] if h else ka[k]
-            rmax, pmax = key >> 16, (pm[k] >> (16 * h)) & 0xFFFF
+            rmax, rrow = key >> 16, 0xFFFF - (key & 0xFFFF)
+            if long:
+                key = max(wb[k] if h else wa[k], _wide_key(key, cb))
+                rmax, rrow = key >> 20, 0xFFFFF - (key & 0xFFFFF)
+            pmax = (pm[k] >> (16 * h)) & 0xFFFF
             cmax.append(max(rmax, pmax))
-            crow.append(0xFFFF - (key & 0xFFFF) if rmax >= pmax
-                        else window._BIG)
+            crow.append(rrow if rmax >= pmax else window._BIG)
         columns.append(list(zip(cmax, crow)))
         limit = min((c for c in range(W) if terms[h] >= 0
                      and c < rlens[h] and cmax[c] == terms[h]),
@@ -619,12 +696,14 @@ def _k4_pair_model(codes, offs, mreals, terms, rlens, words, m, v1=False,
     return (out, columns) if with_columns else out
 
 
+@pytest.mark.parametrize("long", [False, True])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_k4_pair_model_matches_ref(seed):
+def test_k4_pair_model_matches_ref(seed, long):
     """The bit-level model of a K4 pair whose halves have different
     offsets, mreals (phantom bounds, and below m too) and terms (cut or
     not) equals window_pass_ref on each half, on the engine's reverse
-    score table."""
+    score table; in both forms (the long one reads its keys through the
+    wide key, with no chunk start in the sweep)."""
     rng = np.random.default_rng(100 + seed)
     m = 37
     rna = _rna(rng, m)
@@ -660,16 +739,18 @@ def test_k4_pair_model_matches_ref(seed):
             torch.from_numpy(codes), qp, torch.from_numpy(offs),
             torch.from_numpy(terms), torch.from_numpy(rlens),
             torch.from_numpy(mreals), m).numpy()
-        got = _k4_pair_model(codes, offs, mreals, terms, rlens, words, m)
+        got = _k4_pair_model(codes, offs, mreals, terms, rlens, words, m,
+                             long=long)
         assert [tuple(r) for r in want.tolist()] == got, (trial, offs)
 
 
-def test_k4_pair_model_phantom_bound():
+@pytest.mark.parametrize("long", [False, True])
+def test_k4_pair_model_phantom_bound(long):
     """A pair of one window under two phantom bounds, in both orders: the
-    bit-level model keeps each half's phantom max to its own mreal.  The
-    window is found by a seeded search for one whose ends the phantom rows
-    change (they can only through the terms cut, so such windows are
-    rare)."""
+    bit-level model keeps each half's phantom max to its own mreal, in
+    both forms.  The window is found by a seeded search for one whose ends
+    the phantom rows change (they can only through the terms cut, so such
+    windows are rare)."""
     rng = np.random.default_rng(11)
     m, W, R = 8, 10, 20000
     rna = _rna(rng, m)
@@ -692,5 +773,108 @@ def test_k4_pair_model_phantom_bound():
     for mreals in ((m + 6, m), (m, m + 6)):
         got = _k4_pair_model(codes[[i, i]], offs[[i, i]],
                              np.array(mreals, np.int32), terms[[i, i]],
-                             rlens[[i, i]], words, m)
+                             rlens[[i, i]], words, m, long=long)
         assert got == [tuple(ends[mr][i].tolist()) for mr in mreals]
+
+
+
+def _long_query(m: int, motif_at: tuple) -> tuple:
+    """A random ACGT query of m rows (seeded by m) with one 12-base motif
+    planted at each start in motif_at -> (rna, SSW codes, motif codes)."""
+    rng = np.random.default_rng(m)
+    rna = _rna(rng, m)
+    motif = _rna(rng, 12)
+    for p in motif_at:
+        rna[p:p + 12] = motif
+    return rna, rules.SSW_ENC[rna].astype(np.uint8), \
+        rules.SSW_ENC[motif].astype(np.uint8)
+
+
+def _long_pairs(m: int, W: int = 24) -> tuple:
+    """Pairs of windows for the long form at query length m (65,537 or
+    about 91k, forward query rows), each (codes uint8[2, W], offs, mreals,
+    rlens int32[2]), and the rows (tie_lo, tie_hi) of the tie.  Pair 0
+    holds the tie: window A is a motif the query holds twice, ending on
+    rows tie_lo < 65,536 <= tie_hi, so its last column's max (60) is
+    reached on both sides of the chunk start and the lower row must win;
+    window B copies the query from 5 rows before the second copy, so its
+    last column's max is first reached on row tie_hi.  The others hold
+    offsets on both sides of 65,536 and at or past m, mreals past m and
+    below it (and below 65,536), copies of the query (mutated) and random
+    windows."""
+    if m <= CHUNK + 1:  # one real row (65,536) past the chunk start
+        starts = (CHUNK - 56, CHUNK - 11)
+    else:
+        starts = (CHUNK - 60, CHUNK + 30)
+    rna, q, motif = _long_query(m, starts)
+    tie = (starts[0] + 11, starts[1] + 11)
+    rng = np.random.default_rng(m + 1)
+
+    def copy(off, n):
+        c = rng.integers(0, 5, W).astype(np.uint8)
+        piece = q[off:off + n].copy()
+        muts = rng.random(len(piece)) < 0.15
+        piece[muts] = rng.integers(0, 5, int(muts.sum()))
+        c[:len(piece)] = piece
+        return c
+
+    a = np.full(W, 4, np.uint8)
+    a[:12] = motif
+    b = np.full(W, 4, np.uint8)
+    b[:17] = q[starts[1] - 5:starts[1] + 12]
+    pairs = [(np.stack([a, b]), [starts[0] - 3, starts[1] - 8],
+              [m + 8, m + 3] if m <= CHUNK + 1 else [CHUNK + 100, CHUNK + 120],
+              [12, 17])]
+    top = m + 15 if m <= CHUNK + 1 else CHUNK + 90
+    for offs, mreals in (
+            ((CHUNK - 6, CHUNK - 1), (top, CHUNK - 2)),
+            ((CHUNK - 30, CHUNK - 30), (min(m, CHUNK + 40), CHUNK - 10)),
+            ((m - 80, m - 30), (m + 5, m + 12)),
+            ((m, m + 4), (m + 15, m + 9))):
+        codes = np.stack([copy(o, W) for o in offs])
+        if offs[0] == offs[1]:
+            codes[1] = rng.integers(0, 5, W)  # a random window
+        pairs.append((codes, list(offs), list(mreals),
+                      list(rng.integers(W // 2, W + 1, 2))))
+    return rna, [(c, *(np.asarray(v, np.int32) for v in rest))
+                 for c, *rest in pairs], tie
+
+
+def _long_terms(codes, offs, mreals, rlens, qp, m, rng):
+    """Terms for a pair: none, or a column max the window reaches (a real
+    cut), from its ends without terms."""
+    free = window.window_pass_ref(
+        torch.from_numpy(codes), qp, torch.from_numpy(offs),
+        torch.full((2,), -1, dtype=torch.int32), torch.from_numpy(rlens),
+        torch.from_numpy(mreals), m).numpy()
+    return np.where(rng.random(2) < 0.4, -1,
+                    np.maximum(free[:, 0] - rng.integers(0, 6, 2), 0)
+                    ).astype(np.int32)
+
+
+@pytest.mark.parametrize("m", [CHUNK + 1, 91068])
+def test_k4_pair_model_long_matches_ref(m):
+    """The long form's bit-level model equals window_pass_ref at a query
+    just past 65,536 rows and at about 91k (KCNQ1OT1's length), on pairs
+    whose sweeps cross the chunk start at 65,536 or start past it: a tie
+    across it, where the lower row wins, a column max first reached past
+    it, offsets on both sides of it and at m, terms that cut or not,
+    mreals past m and below 65,536.  The 16-bit form, whose row keys wrap
+    there, gets the tie's end row wrong."""
+    rna, pairs, tie = _long_pairs(m)
+    qp = torch.from_numpy(window.window_qp(rna))
+    words = window.score_table(qp).numpy().view(np.uint32)
+    rng = np.random.default_rng(m + 2)
+    for n, (codes, offs, mreals, rlens) in enumerate(pairs):
+        terms = np.full(2, -1, np.int32) if n == 0 else \
+            _long_terms(codes, offs, mreals, rlens, qp, m, rng)
+        want = window.window_pass_ref(
+            torch.from_numpy(codes), qp, *(torch.from_numpy(a) for a in (
+                offs, terms, rlens, mreals)), m).numpy()
+        got = _k4_pair_model(codes, offs, mreals, terms, rlens, words, m,
+                             long=True)
+        assert [tuple(r) for r in want.tolist()] == got, (n, offs)
+        if n == 0:
+            assert got == [(60, 11, tie[0]), (85, 16, tie[1])]
+            assert _k4_pair_model(codes, offs, mreals, terms, rlens, words,
+                                  m)[0] != got[0]

@@ -11,7 +11,7 @@ against the same plain chain on the card by chip_smoke.py.
 import numpy as np
 import pytest
 import torch
-from test_torch_window import _k4_pair_model
+from test_torch_window import CHUNK, _k4_pair_model, _long_pairs, _long_terms
 
 from fasim_tpu_torch.kernels import window, window_v1
 from fasim_tpu_torch.kernels.engine import TorchScanEngine
@@ -73,14 +73,15 @@ def _query_windows(rng, q, offs, W, m):
     return codes
 
 
+@pytest.mark.parametrize("long", [False, True])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_k6_pair_model_matches_plain_chain(seed):
+def test_k6_pair_model_matches_plain_chain(seed, long):
     """The bit-level model of a K6 pair equals the plain chain on each
     half, ends and column statistics, on the engine's score table (forward
     for even seeds, reverse for odd): shared and mismatched offsets within
     the pair, mreals below and above m, terms that cut or do not, an offset
     at or past the window's last keyed row (mreal) and one past the
-    query's last row."""
+    query's last row; in both forms (no chunk start in these sweeps)."""
     rng = np.random.default_rng(300 + seed)
     m, W = 37, 20
     port = _engine(rng, m)
@@ -106,9 +107,41 @@ def test_k6_pair_model_matches_plain_chain(seed):
                          np.maximum(free[:, 0] - rng.integers(0, 6, 2), 0))
         want, mx, mrow = _plain(codes, qc, offs, terms, rlens, mreals, m)
         got, columns = _k4_pair_model(codes, offs, mreals, terms, rlens,
-                                      words, m, v1=True, with_columns=True)
+                                      words, m, v1=True, with_columns=True,
+                                      long=long)
         assert [tuple(r) for r in want.tolist()] == got, (trial, offs)
         assert _columns_agree(columns, mx, mrow), (trial, offs)
+
+
+@pytest.mark.parametrize("m", [CHUNK + 1, 91068])
+def test_k6_pair_model_long_matches_plain_chain(m):
+    """The long form's bit-level model with v1's statistics equals the
+    plain chain (one call over every pair), ends and column statistics, at
+    a query just past 65,536 rows and at about 91k, on the pairs of
+    tests/test_torch_window.py's _long_pairs: a tie across the chunk start
+    at 65,536 (the lower row wins), a column max first reached past it,
+    offsets on both sides of it and at m, terms, mreals past m (keyed
+    phantom rows past 65,536) and below 65,536."""
+    rna, pairs, tie = _long_pairs(m)
+    qp = torch.from_numpy(window.window_qp(rna))
+    qc = qp[0, :window_v1.query_rows(m)].contiguous()
+    words = window.score_table(qp).numpy().view(np.uint32)
+    rng = np.random.default_rng(m + 2)
+    terms = [np.full(2, -1, np.int32)] + [
+        _long_terms(codes, offs, mreals, rlens, qp, m, rng)
+        for codes, offs, mreals, rlens in pairs[1:]]
+    cols = [np.concatenate(c) for c in zip(*pairs)]
+    want, mx, mrow = _plain(cols[0], qc, cols[1], np.concatenate(terms),
+                            cols[3], cols[2], m)
+    for n, (codes, offs, mreals, rlens) in enumerate(pairs):
+        got, columns = _k4_pair_model(codes, offs, mreals, terms[n], rlens,
+                                      words, m, v1=True, with_columns=True,
+                                      long=True)
+        h = slice(2 * n, 2 * n + 2)
+        assert [tuple(r) for r in want[h].tolist()] == got, (n, offs)
+        assert _columns_agree(columns, mx[h], mrow[h]), (n, offs)
+        if n == 0:
+            assert got == [(60, 11, tie[0]), (85, 16, tie[1])]
 
 
 def test_k6_phantom_rows_tell_k4_apart():
@@ -185,27 +218,34 @@ def test_v1_ends_equal_k4_ends(rev):
 
 def _on_card_stubs(monkeypatch):
     """Make window_v1's wrappers take CPU tensors as the card's and record
-    the kernel entries they launch, with their launch counts at 0."""
+    the kernel entries they launch (through window.py's launcher of the
+    pair sweep) with their form (wide), with their launch counts at 0."""
     entries = []
     monkeypatch.setattr(window_v1, "_on_card", lambda name, codes: True)
-    monkeypatch.setattr(window_v1, "_run",
-                        lambda entry, codes, *args: entries.append(entry))
-    for fn in (window_v1.window_v1, window_v1.window_keys):
+    monkeypatch.setattr(window, "_run", lambda entry, codes, *args:
+                        entries.append((entry, args[-2])))
+    for fn in (window_v1.window_v1, window_v1.window_v1_long):
         monkeypatch.setattr(fn, "launches", 0)
     return entries
 
 
+# the longest query whose rows query_rows(m) fit K6's 16-bit row keys
+K6_LAST_M = window_v1.K6_MAX_NQ - 15
+
+
 @pytest.mark.parametrize("m,top,want", [
-    (100, 115, "fasim_window_v1"),
-    (window_v1.K6_MAX_MREAL - 14, window_v1.K6_MAX_MREAL, "fasim_window_v1"),
-    (window_v1.K6_MAX_MREAL - 14, window_v1.K6_MAX_MREAL + 1,
-     "fasim_window_keys"),
+    (100, 115, 0),
+    (K6_LAST_M, K6_LAST_M + 15, 0),
+    (K6_LAST_M + 1, K6_LAST_M + 1, 1),
+    (K6_LAST_M + 1, window_v1.K6_MAX_NQ + 1, 1),
 ])
 def test_k6_routes_by_keyed_rows(m, top, want, monkeypatch):
-    """K6's wrapper on the card (kernels monkeypatched): while every keyed
-    row (t < min(mreal, nq)) is below K6_MAX_MREAL it launches the 16-bit
-    kernel, counted in window_v1.launches; one row past it, the long-query
-    kernel, counted in window_keys.launches."""
+    """K6's wrapper on the card (kernels monkeypatched) routes by shape:
+    while the query rows nq = query_rows(m), which bound every keyed row t
+    < min(mreal, nq), fit K6_MAX_NQ it launches K6's kernel with 16-bit row
+    keys (wide 0), counted in window_v1.launches; one query row longer, its
+    long form (wide 1), counted in window_v1_long.launches, whatever the
+    largest mreal (nothing is read back from the card)."""
     entries = _on_card_stubs(monkeypatch)
     rng = np.random.default_rng(m)
     rna = _rna(rng, m)
@@ -219,10 +259,9 @@ def test_k6_routes_by_keyed_rows(m, top, want, monkeypatch):
     out = window_v1.window_v1(torch.zeros(rows, 64, dtype=torch.uint8), qc,
                               ints, ints - 1, ints + 20, *_t(mreals), m, tab)
     assert out.shape == (rows, 3)
-    assert entries == [want]
-    v1 = want == "fasim_window_v1"
+    assert entries == [("fasim_window_v1", want)]
     assert (window_v1.window_v1.launches,
-            window_v1.window_keys.launches) == (int(v1), int(not v1))
+            window_v1.window_v1_long.launches) == (1 - want, want)
 
 
 def test_window_v1_rejects(monkeypatch):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_window import CHUNK, _long_rows
 
 from fasim_tpu import rules
 from fasim_tpu.kernels import tpu as ktpu
@@ -107,12 +108,16 @@ def test_ends_from_stats_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("m", [143, CHUNK + 1, 68000])
 @pytest.mark.parametrize("rev", [False, True])
-def test_window_pass_v1_matches_xla_and_pallas(rev, monkeypatch):
-    """Codes interface with random offs, terms, rlens and mreals."""
-    rng = np.random.default_rng(31 + rev)
-    m = 143
-    xla, tpu, port = _engines(_rna(rng, m), monkeypatch)
+def test_window_pass_v1_matches_xla_and_pallas(rev, m, monkeypatch):
+    """Codes interface with random offs, terms, rlens and mreals; at a query
+    just past 65,536 rows and at 68,000 too (K6's long form on the card),
+    with offsets and mreals on both sides of 65,536, against XLA only (the
+    Pallas interpreter is slow at that length)."""
+    rng = np.random.default_rng(31 + rev + (m > 143) * m)
+    rna = _rna(rng, m)
+    xla, tpu, port = _engines(rna, monkeypatch)
     assert not tpu.win_v2 and port.win_v1
     tpu.win_rows = 8
     R, W = 13, 128
@@ -122,11 +127,15 @@ def test_window_pass_v1_matches_xla_and_pallas(rev, monkeypatch):
     terms = np.where(rng.random(R) < 0.5, -1,
                      rng.integers(5, 60, R)).astype(np.int32)
     mreals = (m + rng.integers(0, 16, R)).astype(np.int32)
+    if m > CHUNK:
+        q = rules.SSW_ENC[rna[::-1] if rev else rna]
+        codes, offs, mreals = _long_rows(rng, q, m, R, W)
     a = np.asarray(xla.window_pass(codes, offs, terms, rlens, mreals,
                                    rev=rev))
-    b = tpu.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
     c = port.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
-    np.testing.assert_array_equal(b, a)
+    if m <= CHUNK:
+        b = tpu.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
+        np.testing.assert_array_equal(b, a)
     np.testing.assert_array_equal(c, a)
 
 
@@ -245,9 +254,12 @@ def test_window_switch_routing(env, want_fwd, want_rev, monkeypatch):
 
 
 def test_window_keys_rejects_other_devices():
+    """K6's long form (window_v1_long, which took over from the int32 keys
+    kernel) refuses devices other than cpu and cuda before any launch."""
     meta = torch.device("meta")
     codes = torch.zeros(2, 128, dtype=torch.uint8, device=meta)
     rows = torch.zeros(2, dtype=torch.int32, device=meta)
+    tab = torch.zeros(128, 8, dtype=torch.int8, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        window_v1.window_keys(codes, rows, rows, rows, 10)
-    assert window_v1.window_keys.launches == 0
+        window_v1.window_v1_long(codes, rows, rows, rows, rows, rows, 10, tab)
+    assert window_v1.window_v1_long.launches == 0
