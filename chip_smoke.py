@@ -56,8 +56,13 @@ Phases, each printing one line with its seconds:
      "Running time is") byte for byte against oracle/golden, each run
      with the launch counts set to 0 just before it and read just after,
      the kernels of its path launched and the kernels its switches turn
-     off not launched: h19_lg40, h19_default and h19F_trunc (-F)
-     through the port's CLI, h19_lg40 under FASIM_WIN_V3=0 (K4 for
+     off not launched, and prewarm's own launch count printed: h19_lg40,
+     h19_default and h19F_trunc (-F) through the port's CLI, h19_lg40
+     under FASIM_PREWARM=0 (the default run's launch counts), the flag
+     cases flags_r3_t1 (-r 3 -t 1: T = 2), also under FASIM_SCAN16=1
+     FASIM_WIN_V1=1 (K7, K6), and flags_c2000 (-c 2000 -o 50) against
+     the JAX package's outputs in oracle/jax_expected, h19_lg40 under
+     FASIM_WIN_V3=0 (K4 for
      the forward specs, no K3), h19_lg40 through the batched driver with
      TorchScanEngine(use_v2=False) (K5), meg3_sub16 through the
      per-segment path scan/pipeline.scan_file (K5), neat1 (NEAT1,
@@ -1495,23 +1500,19 @@ class Smoke:
 
     def scan_for(self, driver: str):
         """The scan callable of fasim_tpu_torch.cli.run for a driver other
-        than the CLI's own: per-segment (scan/pipeline.scan_file with a
-        cuda engine), the batched driver's round-robin over two engines
-        (multi_devices) or batched with TorchScanEngine(use_v2=False)."""
+        than the CLI's own: the batched driver's round-robin over two
+        engines (multi_devices), or per-segment (scan/pipeline.scan_file)
+        or batched with TorchScanEngine(use_v2=False) on a cuda engine, as
+        fasim_tpu_torch.verify runs them."""
+        from fasim_tpu_torch import verify
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
         from fasim_tpu_torch.scan.batched import scan_file_batched
-        from fasim_tpu_torch.scan.pipeline import scan_file
 
-        if driver == "per-segment":
-            return lambda p, rna: scan_file(
-                p, engine=TorchScanEngine(rna, device=self.dev))
         if driver == "round-robin":
             return lambda p, rna: scan_file_batched(
                 p, [TorchScanEngine(rna, device=d)
                     for d in self.multi_devices()])
-        require(driver == "batched-v1", f"unknown driver {driver}")
-        return lambda p, rna: scan_file_batched(
-            p, TorchScanEngine(rna, device=self.dev, use_v2=False))
+        return verify.scan_for(driver, self.dev)
 
     def run_cli(self, tmp: str, case: str, f1: str, f2: str, extra: list,
                 driver: str = "cli", out: str = "out"):
@@ -1544,7 +1545,9 @@ class Smoke:
                    driver: str) -> float:
         import filecmp
 
-        golden = os.path.join(ORACLE, "golden", case)
+        from fasim_tpu_torch.verify import expected_dir
+
+        golden = expected_dir(case)
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copy(os.path.join(ORACLE, f1), tmp)
             shutil.copy(os.path.join(ORACLE, f2), tmp)
@@ -1567,26 +1570,25 @@ class Smoke:
         return wall
 
     @staticmethod
-    def wrappers() -> dict:
-        from fasim_tpu_torch.kernels import (scan, scan_codes, sim_dev, window,
-                                             window_v1)
+    def prewarm_counter():
+        """Where scan/prewarm.py counts its warm launches (never in a
+        wrapper's count)."""
+        from fasim_tpu_torch.scan.prewarm import prewarm_engines
 
-        return {"scan_colmax": scan.scan_colmax,
-                "scan_colmax16": scan.scan_colmax16,
-                "window_v1": window_v1.window_v1,
-                "window_v1_long": window_v1.window_v1_long,
-                "window_fwd": window.window_fwd,
-                "window_general": window.window_general,
-                "window_general_long": window.window_general_long,
-                "scan_codes_colmax": scan_codes.scan_codes_colmax,
-                "sim_forward": sim_dev.sim_forward}
+        return prewarm_engines
 
     def reset_counts(self) -> None:
-        for fn in self.wrappers().values():
-            fn.launches = 0
+        """Every launch count of the port's wrapper table
+        (fasim_tpu_torch.kernels.WRAPPERS) and prewarm's at 0."""
+        from fasim_tpu_torch.kernels import reset_launches
+
+        reset_launches()
+        self.prewarm_counter().launches = 0
 
     def read_counts(self) -> dict:
-        return {k: fn.launches for k, fn in self.wrappers().items()}
+        from fasim_tpu_torch.kernels import read_launches
+
+        return read_launches()
 
     K135 = ("scan_colmax", "window_fwd", "window_general")
     # every golden query is shorter than K3_MAX_M rows: no run takes the
@@ -1595,6 +1597,12 @@ class Smoke:
     SWITCHED = {"FASIM_SCAN16": "1", "FASIM_WIN_V1": "1"}
     STREAM = ["--tpu-stream", "on"]
     SIM_DEVICE = {"FASIM_SIM_DEVICE": "1"}
+    NO_PREWARM = {"FASIM_PREWARM": "0"}
+    # flag cases of fasim_tpu_torch.verify, held against the JAX package's
+    # outputs (oracle/jax_expected): T = 2 (K7 packs a single pair), and
+    # 5 segments of ~2,000 nt (N and n_pad of K1 and the windows)
+    R3_T1 = ["-lg", "40", "-r", "3", "-t", "1"]
+    C2000 = ["-lg", "40", "-c", "2000", "-o", "50"]
     K8 = ("scan_colmax", "sim_forward")
     # (golden case, DNA, RNA, extra flags, driver, environment, kernels of
     # its path, kernels it must not launch, whether it is a main path whose
@@ -1607,7 +1615,16 @@ class Smoke:
         ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli",
          {"FASIM_WIN_V3": "0"}, ("scan_colmax", "window_general"),
          ("window_fwd",) + LONG, False),
+        # prewarm off: the default run's bytes and launch counts
+        ("h19_lg40", "testDNA.fa", "H19.fa", ["-lg", "40"], "cli",
+         NO_PREWARM, K135, LONG, False),
         ("h19_default", "testDNA.fa", "H19.fa", [], "cli", {}, K135, LONG,
+         False),
+        ("flags_r3_t1", "testDNA.fa", "H19.fa", R3_T1, "cli", {}, K135, LONG,
+         False),
+        ("flags_r3_t1", "testDNA.fa", "H19.fa", R3_T1, "cli", SWITCHED,
+         ("scan_colmax16", "window_v1"), K135 + LONG, False),
+        ("flags_c2000", "testDNA.fa", "H19.fa", C2000, "cli", {}, K135, LONG,
          False),
         ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"], "cli",
          {}, ("scan_colmax",), (), False),
@@ -1692,6 +1709,7 @@ class Smoke:
             self.reset_counts()
             wall = self.run_golden(case, f1, f2, extra, driver)
             counts = self.read_counts()
+            warm = self.prewarm_counter().launches
             left = [f for f in os.listdir(spill)
                     if f.startswith("fasim-strspill-")]
         require(not left, f"{run}: spill files left behind: {left}")
@@ -1699,7 +1717,7 @@ class Smoke:
             want = "scan_file_stream" if stream else "scan_file_batched"
             require(calls == {want: 1}, f"{run}: drivers run {calls}")
         print(f"  {run}: byte-identical, wall {wall:.3f} s, launches "
-              f"{counts}")
+              f"{counts}, prewarm's {warm}")
         for k in kernels:
             require(counts[k] > 0, f"{run}: kernel {k} was never launched")
         for k in off:
@@ -1714,6 +1732,10 @@ class Smoke:
     def phase_e2e(self) -> None:
         for entry in self.GOLDENS:
             self.golden_case(*entry)
+        warm, cold = (self.counts[f"h19_lg40 (cli{flags})"]
+                      for flags in ("", ", FASIM_PREWARM=0"))
+        require(warm == cold, f"h19_lg40: launches {warm} with prewarm, "
+                f"{cold} without")
         h19 = {run: wall for run, wall in self.walls.items()
                if run.startswith(("h19_F ", "h19F_trunc "))}
         print("  -F walls, host SIM and device forward scan (K8): "
@@ -1736,8 +1758,12 @@ class Smoke:
         fastSIM, scan_segments for -F, whose escalation reruns with
         full_prefix are not dispatches): yields a callable returning
         [(device, batches)] in the order the engines were built, which is
-        the round-robin's."""
+        the round-robin's.  Prewarm's calls on its own threads are not
+        dispatches."""
+        import threading
+
         from fasim_tpu_torch.kernels.engine import TorchScanEngine
+        from fasim_tpu_torch.scan.prewarm import THREAD_NAME
 
         made, batches = [], {}
         init, call = TorchScanEngine.__init__, getattr(TorchScanEngine,
@@ -1748,7 +1774,8 @@ class Smoke:
             made.append(self)
 
         def counted(self, *args, **kw):
-            if not kw.get("full_prefix"):
+            if (not kw.get("full_prefix")
+                    and threading.current_thread().name != THREAD_NAME):
                 batches[id(self)] = batches.get(id(self), 0) + 1
             return call(self, *args, **kw)
 
@@ -1819,13 +1846,11 @@ class Smoke:
 import json
 import sys
 
-import chip_smoke
 from fasim_tpu_torch.dist import runner
+from fasim_tpu_torch.kernels import read_launches
 
 rc = runner.main(sys.argv[1:])
-print("LAUNCHES " + json.dumps({k: fn.launches for k, fn in
-                                chip_smoke.Smoke.wrappers().items()}),
-      file=sys.stderr)
+print("LAUNCHES " + json.dumps(read_launches()), file=sys.stderr)
 print("SECONDS " + json.dumps({"local": runner.LAST_LOCAL_SECONDS,
                                "gather": runner.LAST_GATHER_SECONDS}),
       file=sys.stderr)
@@ -1937,12 +1962,11 @@ import sys
 
 import chip_smoke
 from fasim_tpu_torch import cli
+from fasim_tpu_torch.kernels import read_launches
 
 with chip_smoke.Smoke.driver_calls() as calls:
     rc = cli.main(sys.argv[1:])
-print("LAUNCHES " + json.dumps({k: fn.launches for k, fn in
-                                chip_smoke.Smoke.wrappers().items()}),
-      file=sys.stderr)
+print("LAUNCHES " + json.dumps(read_launches()), file=sys.stderr)
 print("DRIVERS " + json.dumps(calls), file=sys.stderr)
 print("PEAK_RSS_MB " + json.dumps(
     resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024),

@@ -36,42 +36,67 @@ STAGES = ("cand_finalize_busy", "host_candidate_wait", "cand_fwd_dev",
           "device_wait")
 
 
-def run_once(checkout: str, case: str) -> dict:
-    f1, f2, extra = CASES[case]
-    golden = os.path.join(ORACLE, "golden", case)
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(checkout))
+def expected_stdout(expected: str) -> str:
+    """The one `stdout*` file of an expected-output directory (a golden's
+    is stdout.txt or stdout_<case>.txt)."""
+    [name] = [f for f in os.listdir(expected) if f.startswith("stdout")]
+    return os.path.join(expected, name)
+
+
+def stdout_lines(text: str) -> list[str]:
+    """A run's stdout lines but the `Running time is` one."""
+    return [ln for ln in text.splitlines()
+            if not ln.startswith("Running time is")]
+
+
+def run_once(checkout: str, inputs: tuple[str, str], expected: str,
+             argv: list[str], env: dict | None = None,
+             module: str = "fasim_tpu_torch.cli") -> dict:
+    """`python -m <module> <argv>` in a fresh directory holding the two
+    oracle/ inputs and an empty out/, with `checkout` on PYTHONPATH and
+    `env` over this process's environment.  Every file of out/ and the
+    stdout (but "Running time is") are held against the directory
+    `expected`.  Returns {"ok", "rc", "differ" (names: files and
+    "stdout"), "profile" (FASIM_PROFILE), "stderr"}."""
+    env = dict(os.environ, **(env or {}),
+               PYTHONPATH=os.path.abspath(checkout))
     with tempfile.TemporaryDirectory() as tmp:
-        shutil.copy(os.path.join(ORACLE, f1), tmp)
-        shutil.copy(os.path.join(ORACLE, f2), tmp)
+        for name in inputs:
+            shutil.copy(os.path.join(ORACLE, name), tmp)
         os.mkdir(os.path.join(tmp, "out"))
-        r = subprocess.run(
-            [sys.executable, "-m", "fasim_tpu_torch.cli", "-f1", f1, "-f2",
-             f2, "-O", "out/", "--tpu-stdout-compat", "true",
-             "--tpu-profile", "true", "--tpu-engine", "cuda", *extra],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=1800)
-        if r.returncode != 0:
-            return {"ok": False, "why": f"exit {r.returncode}: "
-                    f"{r.stderr[-2000:]}"}
+        r = subprocess.run([sys.executable, "-m", module, *argv], cwd=tmp,
+                           env=env, capture_output=True, text=True,
+                           timeout=1800)
         produced = sorted(os.listdir(os.path.join(tmp, "out")))
-        expected = sorted(f for f in os.listdir(golden)
-                          if not f.startswith("stdout"))
-        differ = [f for f in expected if f not in produced or not
+        stdout = expected_stdout(expected)
+        wanted = sorted(f for f in os.listdir(expected)
+                        if f != os.path.basename(stdout))
+        differ = [f for f in wanted if f not in produced or not
                   filecmp.cmp(os.path.join(tmp, "out", f),
-                              os.path.join(golden, f), shallow=False)]
-        differ += [f for f in produced if f not in expected]
-
-    def strip(text):
-        return [ln for ln in text.splitlines()
-                if not ln.startswith("Running time is")]
-
-    with open(os.path.join(golden, "stdout.txt")) as f:
-        if strip(r.stdout) != strip(f.read()):
+                              os.path.join(expected, f), shallow=False)]
+        differ += [f for f in produced if f not in wanted]
+    with open(stdout) as f:
+        if stdout_lines(r.stdout) != stdout_lines(f.read()):
             differ.append("stdout")
     prof = {}
     for line in r.stderr.splitlines():
         if line.startswith("FASIM_PROFILE "):
             prof = json.loads(line[len("FASIM_PROFILE "):])
-    return {"ok": not differ, "differ": differ, "profile": prof}
+    return {"ok": r.returncode == 0 and not differ, "rc": r.returncode,
+            "differ": differ, "profile": prof, "stderr": r.stderr}
+
+
+def run_case(checkout: str, case: str) -> dict:
+    """One CLI run of a golden case on the card (--tpu-engine cuda)."""
+    f1, f2, extra = CASES[case]
+    res = run_once(checkout, (f1, f2), os.path.join(ORACLE, "golden", case),
+                   ["-f1", f1, "-f2", f2, "-O", "out/",
+                    "--tpu-stdout-compat", "true", "--tpu-profile", "true",
+                    "--tpu-engine", "cuda", *extra])
+    if res["rc"] != 0:
+        res["why"] = f"exit {res['rc']}: {res['stderr'][-2000:]}"
+    del res["stderr"]
+    return res
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -85,14 +110,14 @@ def main(argv: list[str] | None = None) -> int:
     for case in args.case or ["meg3_full"]:
         for who, checkout in (("other", args.other), ("this", REPO),
                               ("this", REPO), ("other", args.other)):
-            res = run_once(checkout, case)
+            res = run_case(checkout, case)
             res.update(case=case, checkout=who)
             runs.append(res)
             prof = res.get("profile", {})
             stages = " ".join(f"{k} {prof[k]}" for k in STAGES if k in prof)
             print(f"{case} {who}: "
                   f"{'byte-identical' if res['ok'] else 'DIFFERS'} "
-                  f"{res.get('differ') or res.get('why', '')} wall "
+                  f"{res.get('why') or res['differ']} wall "
                   f"{prof.get('wall', 'not measured')} s; {stages}",
                   flush=True)
     print(json.dumps(runs))

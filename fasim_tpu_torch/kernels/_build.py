@@ -16,6 +16,7 @@ non-zero code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -143,13 +144,27 @@ def check(err: int, entry: str) -> None:
 
 
 _count_lock = threading.Lock()
+_counting = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to a kernel wrapper's `launches` count (scan/batched.py launches
-    window passes from several stage threads)."""
+    window passes from several stage threads), or, on a thread inside
+    `launches_to(target)`, to `target.launches` instead."""
+    target = getattr(_counting, "target", None) or wrapper
     with _count_lock:
-        wrapper.launches += 1
+        target.launches += 1
+
+
+@contextlib.contextmanager
+def launches_to(target):
+    """Count this thread's launches in `target.launches`, not in the
+    wrappers' counts (scan/prewarm.py's warm launches)."""
+    _counting.target = target
+    try:
+        yield
+    finally:
+        _counting.target = None
 
 
 def stream_of(t) -> int:

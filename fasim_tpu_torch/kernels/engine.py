@@ -109,6 +109,10 @@ class TorchScanEngine:
         self.scan16 = os.environ.get("FASIM_SCAN16", "0") == "1"
         self.win_v1 = False
         self.win_v3 = True
+        # scan/prewarm.py: the (n_pad, batch_pairs) keys warmed on this
+        # engine, and the futures of its warm jobs not yet joined
+        self.warmed: set[tuple[int, int]] = set()
+        self.warm_jobs: list = []
 
     # -- state ---------------------------------------------------------------
 

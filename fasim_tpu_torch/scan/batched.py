@@ -10,7 +10,10 @@ scan_records, scan_file_batched, RecordMeta, scan_file_stream) for a
 scan/candidates.py, so the output is byte-identical to the JAX
 package's.  Differences from fasim_tpu.scan.batched:
 
-  * no prewarm: CUDA kernels are not compiled per shape;
+  * prewarm (scan/prewarm.py) builds and loads the kernel and native
+    libraries and makes the first launches of the engines' kernels, as
+    the JAX package compiles its shapes, but its failures are raised at
+    the engine's first dispatch, not swallowed;
   * `max_inflight` 0 or less means 2 batches an engine, not "dispatch
     everything up front";
   * the packed candidates come back with one `.cpu()` of the pos / val
@@ -60,6 +63,7 @@ from ..config import BYTE_SAT, Params
 from ..io import fasta
 from ..kernels.sim_dev import sim_device_ok, sim_forward_cells
 from ..profiling import STAGES
+from . import prewarm
 from .candidates import candidate_stage_batch
 from .pipeline import Triplex, _sim
 
@@ -335,17 +339,26 @@ def _engines(engine) -> list:
 
 def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
                    engine, n_pad: int, batch_pairs: int = 64,
-                   host_threads: int = 0, max_inflight: int = 4):
+                   host_threads: int = 0, max_inflight: int = 4,
+                   n_work_hint: int = -1):
     """Streaming scan core: consume a work iterator, keep at most
     `max_inflight` device batches in flight per engine, yield (work item,
     hits) in input order.  `engine` is one TorchScanEngine or a list of
     them (one a device); batch k goes to engine k mod the count
-    (fasim_tpu/scan/batched.py:436-447)."""
+    (fasim_tpu/scan/batched.py:436-447).  `n_work_hint`, the number of
+    work items when known (-1 otherwise), lets a small job skip the
+    window warm."""
     engines = _engines(engine)
     for eng in engines:
         eng.setup_scans(scans)
         if p.do_fast_sim:
             eng.setup_windows(rna)
+    if os.environ.get("FASIM_PREWARM", "1") == "1":
+        # a small job (an H19-demo-sized input is one batch) skips the
+        # window warm, as fasim_tpu's does
+        small = 0 <= n_work_hint <= 2 * batch_pairs
+        prewarm.prewarm_engines(engines, n_pad, batch_pairs,
+                                p.do_fast_sim and not small)
     if host_threads <= 0:
         host_threads = min(32, os.cpu_count() or 1)
     max_inflight = max(max_inflight, 2) * len(engines)
@@ -393,6 +406,11 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
             segs[i, :len(w.segment)] = w.segment
             lengths[i] = len(w.segment)
         eng = engines[k % len(engines)]
+        with STAGES.timer("prewarm_wait"):
+            # the engine's warm jobs end before its first dispatch, and
+            # a failed one raises here
+            for fut in prewarm.pending(eng):
+                _result(fut, "a warm job")
         with STAGES.timer("device_dispatch"):
             if p.do_fast_sim:
                 out = eng.scan_segments_packed(segs, lengths)
@@ -426,6 +444,10 @@ def iter_scan_work(p: Params, rna: np.ndarray, work_iter, scans: list[dict],
         done.extend(inflight)
         inflight.clear()
         yield from drain_done(min_keep=0)
+        # an engine that got no batch still raises its warm failure
+        for eng in engines:
+            for fut in prewarm.pending(eng):
+                _result(fut, "a warm job")
     finally:
         # a wedged thread never returns: do not wait for it
         for ex in (stages, pool):
@@ -446,7 +468,8 @@ def scan_work(p: Params, rna: np.ndarray, work: list[_Work],
     n_max = max(len(w.segment) for w in work)
     n_pad = (n_max + 127) // 128 * 128
     return list(iter_scan_work(p, rna, iter(work), scans, engine, n_pad,
-                               batch_pairs, host_threads, max_inflight))
+                               batch_pairs, host_threads, max_inflight,
+                               n_work_hint=len(work)))
 
 
 def scan_records(p: Params, records, rna: np.ndarray, engine,

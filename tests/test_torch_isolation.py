@@ -6,7 +6,9 @@ columnar store, a batched scan under FASIM_SCAN16=1 FASIM_WIN_V1=1, a
 batched `-F` scan under FASIM_SIM_DEVICE=1 (the device forward scan of
 kernels/sim_dev.py and the native replay), the round-robin over two
 engines, the sharded scan step of `dist` and the runner's spill loader
-(`dist/runner.py`) run on the CPU."""
+(`dist/runner.py`), and `iter_scan_work` with prewarm on for a stand-in
+card engine (scan/prewarm.py) run on the CPU; the GPU parity matrix
+(`fasim_tpu_torch.verify`) imports."""
 
 import os
 import subprocess
@@ -144,6 +146,45 @@ th, cm = dist.sharded_scan_step(dist.make_mesh(1, 2, ["cpu"] * 2),
                                 rna)(codes, codes)
 assert th.shape == (1, 4) and cm.shape == (1, 4, 300)
 assert runner._loads(pickle.dumps(hits_f)) == hits_f
+# prewarm: a stand-in card engine (a CPU engine that reports cuda:0)
+# through iter_scan_work with prewarm on, window warm included; the
+# kernel library's build and the device scope are stubbed (no nvcc, no
+# card); the GPU parity matrix imports
+import contextlib
+
+import torch
+
+import fasim_tpu_torch.verify  # noqa: F401
+from fasim_tpu_torch.scan import prewarm
+
+assert {"fasim_tpu_torch.verify", "fasim_tpu_torch.scan.prewarm"} <= set(
+    mods), mods
+
+
+class FakeCuda:
+    def __init__(self, rna):
+        self.inner = TorchScanEngine(rna, device="cpu")
+        self.device = torch.device("cuda:0")
+        self.warmed, self.warm_jobs = set(), []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+warm_jobs = []
+scan_job, window_job = prewarm._scan_job, prewarm._window_job
+prewarm._kernel_library = lambda: None
+prewarm._on_device = lambda device: contextlib.nullcontext()
+prewarm._scan_job = lambda *a: warm_jobs.append("scan") or scan_job(*a)
+prewarm._window_job = lambda *a: warm_jobs.append("win") or window_job(*a)
+os.environ["FASIM_PREWARM"] = "1"
+fake = FakeCuda(rna)
+work2, scans48 = batched.enumerate_work(Params(), recs2)
+warm = list(batched.iter_scan_work(Params(), rna, iter(work2), scans48,
+                                   fake, 384, batch_pairs=1))
+assert warm_jobs == ["scan", "win"], warm_jobs
+assert fake.warmed == {(384, 1)} and fake.warm_jobs == []
+assert [h for _, h in warm] == one, (len(warm), len(one))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fasim_tpu"))
 assert not bad, bad
