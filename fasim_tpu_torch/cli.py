@@ -30,6 +30,13 @@ the card, its plain version on the CPU) and the host replays the
 qualifying cells; the numpy engine's per-segment path ignores the switch,
 as the JAX package's does.  More than one host: `python -m
 fasim_tpu_torch.dist.runner` with the same flags.
+
+`--tpu-profile true` (or FASIM_PROFILE=1) prints `profiling.STAGES`'
+report as one `FASIM_PROFILE {...}` line on stderr: each stage's
+seconds and calls, and the `n_` counts of work (batches, escalations,
+scan and window cells, window rows, peaks, winners).  FASIM_TRACE=<path>
+writes the job's spans (stages with their threads and parents) there as
+a Chrome trace (profiling.py).
 """
 
 from __future__ import annotations
@@ -133,7 +140,10 @@ def show_help() -> None:
           "--tpu-segments-per-batch 64  "
           "--tpu-max-inflight 4  "
           "--tpu-stream auto|on|off  --tpu-sim-device true  "
-          "--tpu-stdout-compat true  --tpu-profile true")
+          "--tpu-stdout-compat true  --tpu-profile true\n"
+          "env: FASIM_PROFILE=1 (as --tpu-profile true: one FASIM_PROFILE "
+          "JSON line on stderr, stage seconds and n_ counts of work)  "
+          "FASIM_TRACE=path (the job's spans as a Chrome trace)")
     sys.exit(1)
 
 
@@ -176,6 +186,7 @@ def wants_stream(tpu: TpuConfig, path: str) -> bool:
 
 def main(argv: list[str] | None = None) -> int:
     from .kernels.batch_np import numpy_engine
+    from .profiling import STAGES
     from .scan.batched import scan_file_batched, scan_file_stream
     from .scan.pipeline import scan_file
 
@@ -184,7 +195,8 @@ def main(argv: list[str] | None = None) -> int:
         os.environ["FASIM_SIM_DEVICE"] = "1"
 
     def scan(p: Params, rna: np.ndarray):
-        engine = make_engine(tpu, rna)
+        with STAGES.timer("engine_setup"):
+            engine = make_engine(tpu, rna)
         if engine is None:
             return scan_file(p, engine=numpy_engine)
         runner = (scan_file_stream if wants_stream(tpu, p.file1path)
@@ -202,17 +214,32 @@ def run(p: Params, tpu: TpuConfig, scan) -> int:
     `TriplexStore`).  `main` passes the scan `--tpu-engine` picks; a
     caller may pass another driver or engine (chip_smoke.py runs the
     per-segment path on the card through here)."""
+    from .profiling import STAGES
+
+    profile = tpu.profile or os.environ.get("FASIM_PROFILE", "") not in ("",
+                                                                         "0")
+    if profile:
+        STAGES.start_run()
+    with STAGES.job():
+        _run(p, tpu, scan)
+    if profile:
+        import json
+
+        print("FASIM_PROFILE " + json.dumps(STAGES.report()),
+              file=sys.stderr)
+    return 0
+
+
+def _run(p: Params, tpu: TpuConfig, scan) -> None:
+    """`run`'s body, inside the job's span."""
     from .io import fasta
     from .post.output import print_result
     from .profiling import STAGES
 
     print(f"Searching triplexes using {'Fasim' if p.do_fast_sim else 'Sim'}")
-    profile = tpu.profile or os.environ.get("FASIM_PROFILE", "") not in ("",
-                                                                         "0")
-    if profile:
-        STAGES.start_run()
     t_start = time.process_time()
-    lnc_probe, rna_probe = fasta.read_rna(p.file2path)
+    with STAGES.timer("read_input"):
+        lnc_probe, rna_probe = fasta.read_rna(p.file2path)
     if tpu.stdout_compat:
         # the reference interleaves these with the scan; the final stream
         # is identical when printed up front (record/segment order)
@@ -235,12 +262,6 @@ def run(p: Params, tpu: TpuConfig, scan) -> int:
     if tpu.stdout_compat:
         # reference: clock()-based CPU seconds (never byte-compared)
         print(f"Running time is {time.process_time() - t_start:.6g}")
-    if profile:
-        import json
-
-        print("FASIM_PROFILE " + json.dumps(STAGES.report()),
-              file=sys.stderr)
-    return 0
 
 
 def entry() -> None:

@@ -25,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..profiling import STAGES
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 LIB_NAME = "libfasim_cuda.so"
@@ -93,31 +95,32 @@ def build() -> Path:
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"tmp{os.getpid()}"
-    cus = [s for s in sources if s.suffix == ".cu"]
-    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in cus]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(cus, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
-    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
-    link = None
-    if all(proc.returncode == 0 for proc in procs):
-        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        logs.append(link.stdout + link.stderr)
-    (BUILD_DIR / "build.log").write_text("".join(logs))
-    for o in objs:
-        o.unlink(missing_ok=True)
-    if link is None or link.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + "".join(logs)[-4000:])
-    os.replace(tmp, lib)  # atomic against a concurrent build
-    stamp.write_text(digest)
-    return lib
+    with STAGES.timer("build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tag = f"tmp{os.getpid()}"
+        cus = [s for s in sources if s.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cus, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+        link = None
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            logs.append(link.stdout + link.stderr)
+        (BUILD_DIR / "build.log").write_text("".join(logs))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + "".join(logs)[-4000:])
+        os.replace(tmp, lib)  # atomic against a concurrent build
+        stamp.write_text(digest)
+        return lib
 
 
 def lib() -> ctypes.CDLL:
@@ -145,6 +148,12 @@ def check(err: int, entry: str) -> None:
 
 _count_lock = threading.Lock()
 _counting = threading.local()
+
+
+def counted_apart() -> bool:
+    """Whether this thread runs inside `launches_to`: its work (launches,
+    scan and window cells) is counted apart from the main path's."""
+    return getattr(_counting, "target", None) is not None
 
 
 def count_launch(wrapper) -> None:

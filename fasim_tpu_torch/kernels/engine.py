@@ -48,7 +48,9 @@ import numpy as np
 import torch
 
 from .. import rules
+from ..profiling import STAGES
 from ..rules import SSW_ENC, THRESH_ENC
+from . import _build
 
 from .pack import pack_candidates
 from .scan import (N_BASE, PURE, PURE_OR_PAD, Scan16Table, ScanTable,
@@ -76,6 +78,13 @@ STATE_DTYPES = {
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def _count_work(name: str, cells: int) -> None:
+    """Add the cells a pass asks its kernels to sweep to STAGES' counter
+    `name`, or to `<name>_prewarm` on a warm thread (scan/prewarm.py)."""
+    STAGES.count(name + "_prewarm" if _build.counted_apart() else name,
+                 cells)
 
 
 class TorchScanEngine:
@@ -263,6 +272,10 @@ class TorchScanEngine:
             return scan_colmax(*args, d[f"stab_{alpha}"], self.m16,
                                alpha == "thresh", want_cm=want_cm)
 
+        # the cells each pass sweeps: every (segment, transform, query row
+        # of m16, column of the padded batch)
+        _count_work("scan_cells", (1 if fused else 2) * segs.shape[0] * T
+                    * self.m16 * segs.shape[1])
         cm, gm = scan("ssw", ok16 and not (fused and full_prefix))
         if not fused:
             # query U/N or segment bytes outside ACGT: the threshold
@@ -286,6 +299,8 @@ class TorchScanEngine:
 
         def codes(lut):
             return torch.gather(lut[None].expand(S, T, 256), 2, sel)
+
+        _count_work("scan_cells", (1 if fused else 2) * S * T * self.m16 * N)
 
         cm = scan_codes_colmax(codes(d["lut_s"]), d["qprops_ssw"],
                                d["ctab_ssw"], self.m16, "ssw")
@@ -368,6 +383,12 @@ class TorchScanEngine:
                    and (cols["mreals"] == self.m16).all()
                    and (cols["dirn"] == 1).all())
         self._check_rows(cols["mreals"])
+        # the cells the windows need, whatever kernel sweeps them: rows
+        # [off, max(mreal, m)) of the query by rlen columns
+        _count_work("window_cells", int(
+            (cols["rlens"].astype(np.int64)
+             * (np.maximum(cols["mreals"], self.m).astype(np.int64)
+                - cols["offs"])).sum()))
         segs_t = self._to_dev(segs, torch.uint8)
         S, N = segs_t.shape
         both = both_strands(segs_t, self._to_dev(lengths, torch.int32))

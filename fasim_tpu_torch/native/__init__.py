@@ -17,6 +17,8 @@ import threading
 
 import numpy as np
 
+from ..profiling import STAGES
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                          "native")
@@ -47,9 +49,10 @@ def _load():
                 max(os.path.getmtime(s) for s in deps)):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = _SO + f".tmp{os.getpid()}"
-            subprocess.run(["g++", "-O3", "-mavx2", "-funroll-loops",
-                            "-fPIC", "-shared", *_SRCS, "-o", tmp],
-                           check=True, capture_output=True)
+            with STAGES.timer("build"):
+                subprocess.run(["g++", "-O3", "-mavx2", "-funroll-loops",
+                                "-fPIC", "-shared", *_SRCS, "-o", tmp],
+                               check=True, capture_output=True)
             os.replace(tmp, _SO)  # atomic vs concurrent builds
         lib = ctypes.CDLL(_SO)
         c = ctypes

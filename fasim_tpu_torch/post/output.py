@@ -27,6 +27,7 @@ import numpy as np
 
 from .. import native
 from ..config import Params
+from ..profiling import STAGES
 from ..scan.pipeline import Triplex
 
 _F32 = np.float32
@@ -227,8 +228,10 @@ def print_result(p: Params, species: str, lnc_name: str,
     out_path = (p.outpath + "/" + species + "-" + lnc_name + "-"
                 + file_name + "-TFOsorted")
     class1: list[dict[int, int]] = [dict() for _ in range(6)]
-    cluster_triplex(p.c_distance, p.c_length, tlist, class1, 5)
-    write_tfosorted(out_path, tlist)
+    with STAGES.timer("cluster_triplex"):
+        cluster_triplex(p.c_distance, p.c_length, tlist, class1, 5)
+    with STAGES.timer("write_tfosorted"):
+        write_tfosorted(out_path, tlist)
     prev = "\x7f"
     for level in (1, 2):
         if stdout_compat:
@@ -239,7 +242,8 @@ def print_result(p: Params, species: str, lnc_name: str,
             # later calls
             print(f"{prev}{level}")
             prev = str(level)
-        write_cluster(level, class1[level], start_genome - 1, chro_tag,
-                      dna_size, lnc_name, p.c_distance, p.c_length,
-                      out_path, str(p.c_distance), str(p.c_length))
+        with STAGES.timer("bedgraphs"):
+            write_cluster(level, class1[level], start_genome - 1, chro_tag,
+                          dna_size, lnc_name, p.c_distance, p.c_length,
+                          out_path, str(p.c_distance), str(p.c_length))
     return out_path

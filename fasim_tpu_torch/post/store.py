@@ -37,6 +37,7 @@ import numpy as np
 
 from .. import native
 from ..config import Params
+from ..profiling import STAGES
 from .output import _fmt_f, get_strand, write_cluster
 
 
@@ -279,15 +280,18 @@ def print_result_store(p: Params, species: str, lnc_name: str,
     out_path = (p.outpath + "/" + species + "-" + lnc_name + "-"
                 + file_name + "-TFOsorted")
     class1: list[dict[int, int]] = [dict() for _ in range(6)]
-    cluster_store(p.c_distance, p.c_length, st, class1, 5)
-    write_tfosorted_store(out_path, st)
+    with STAGES.timer("cluster_triplex"):
+        cluster_store(p.c_distance, p.c_length, st, class1, 5)
+    with STAGES.timer("write_tfosorted"):
+        write_tfosorted_store(out_path, st)
     prev = "\x7f"
     for level in (1, 2):
         if stdout_compat:
             print(f"{prev}{level}")
             prev = str(level)
-        write_cluster(level, class1[level], start_genome - 1, chro_tag,
-                      dna_size, lnc_name, p.c_distance, p.c_length,
-                      out_path, str(p.c_distance), str(p.c_length))
+        with STAGES.timer("bedgraphs"):
+            write_cluster(level, class1[level], start_genome - 1, chro_tag,
+                          dna_size, lnc_name, p.c_distance, p.c_length,
+                          out_path, str(p.c_distance), str(p.c_length))
     st.close()
     return out_path

@@ -210,6 +210,7 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
                 outs.append((w, fut))
             return outs
         peaks = np.concatenate(peak_parts)  # (P, 4): seg_i, scan, score, pos
+    STAGES.count("peaks", len(peaks))
     seg_i = peaks[:, 0]
     scan_i = peaks[:, 1]
     score = peaks[:, 2]
@@ -245,6 +246,7 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
     r_best = np.zeros((P, nr), np.int64)
     r_ecol = np.full((P, nr), -1, np.int64)
     r_erow = np.zeros((P, nr), np.int64)
+    STAGES.count("window_rows_fwd0", P)
     with STAGES.timer("cand_fwd_dev"):
         out0 = eng.window_pass_specs(
             segs, lengths, fwd_specs(np.arange(P), cutlens[:, 0]),
@@ -260,6 +262,7 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
         pk_r, rd_r = np.nonzero(uniq)
         pk = rest[pk_r]
         rd = rd_r + 1
+        STAGES.count("window_rows_fwd1", len(pk))
         with STAGES.timer("cand_fwd_dev"):
             out = eng.window_pass_specs(
                 segs, lengths, fwd_specs(pk, cutlens[pk, rd]), rev=False)
@@ -304,6 +307,7 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
     # a pure function of the row), so dispatch each distinct row once and
     # scatter the result back — on MEG3-full this cuts the rev rows ~2x.
     wi = np.flatnonzero(winner)
+    STAGES.count("winners", len(wi))
     meta5 = np.zeros((P, 5), np.int32)
     if len(wi):
         lanes = np.where(c_best[wi] >= BYTE_SAT, 8, 16)
@@ -319,6 +323,7 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
             ("seg_idx", "scan_idx", "base", "dirn", "rlens", "offs",
              "terms", "mreals"),
             np.ascontiguousarray(uniq.T)))
+        STAGES.count("window_rows_rev", len(uniq))
         with STAGES.timer("cand_rev_dev"):
             out_r = eng.window_pass_specs(segs, lengths, spec, rev=True)[inv]
         sw_final = np.minimum(out_r[:, 0], c_best[wi])  # sswNew.cpp:1518
@@ -341,7 +346,8 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
     for i, w in enumerate(batch):
         sel = np.flatnonzero((seg_i == i) & winner)
         outs.append((w, pool.submit(
-            _finalize_segment, p, rna, q_idx, rna_b, meta, w,
+            STAGES.spanned("cand_finalize_busy", _finalize_segment,
+                           segment=i), p, rna, q_idx, rna_b, meta, w,
             scan_i[sel], meta5[sel], gm[i],
             (lambda i=i: cm_fb(i)))))
     return outs
@@ -352,45 +358,45 @@ def _finalize_segment(p: Params, rna: np.ndarray, q_idx: np.ndarray,
                       meta5: np.ndarray, gm_row: np.ndarray,
                       cm_row_get) -> list[Triplex]:
     """Banded traceback + convert + dedup/filter for one segment's winning
-    candidates, per scan in scan order (the reference's iteration order)."""
-    with STAGES.timer("cand_finalize_busy"):
-        found: list[Triplex] = []
-        if not len(scan_sel):
-            return found
-        src = SegmentSources(w.segment)
-        n = len(w.segment)
-        scans = meta.scans
-        for k in np.unique(scan_sel):
-            rows = np.flatnonzero(scan_sel == k)
-            scan = scans[int(k)]
-            chars, r_idx = _scan_strings(meta, w.segment, int(k))
-            s2_b = chars.tobytes()
-            src_b = src.src_bytes[meta.src_sel[k]]
-            if src.src_lens[meta.src_sel[k]] != n:
-                raise ValueError(
-                    "source-string length mismatch (complement drops "
-                    "non-ACGTN characters): reference behavior is "
-                    "undefined on this input")
-            res = native.finalize_pair(
-                q_idx, r_idx, rna_b, s2_b, src_b,
-                np.ascontiguousarray(meta5[rows], np.int32), meta.mat,
-                GAP_OPEN, GAP_EXTEND, w.start, scan["strand"],
-                scan["para"], p.nt_min, p.nt_max, p.penalty_t, p.penalty_c,
-                f32(p.min_identity), f32(p.min_stability))
-            if res is None:
-                # banded traceback error (never observed): exact rerun of
-                # the whole pair through the sequential host path
-                res = _pair_fallback(p, rna, q_idx, rna_b, meta, w, src,
-                                     chars, r_idx, int(k), gm_row,
-                                     cm_row_get())
-            for r in res:
-                found.append(Triplex(
-                    stari=r[0], endi=r[1], starj=r[2], endj=r[3],
-                    strand=scan["strand"], reverse=scan["para"],
-                    rule=scan["rule"], nt=r[4], score=f32(r[5]),
-                    identity=f32(r[6]), tri_score=f32(r[7]),
-                    stri_align=r[8], strj_align=r[9]))
+    candidates, per scan in scan order (the reference's iteration order).
+    Runs on the pool, inside the span `cand_finalize_busy`."""
+    found: list[Triplex] = []
+    if not len(scan_sel):
         return found
+    src = SegmentSources(w.segment)
+    n = len(w.segment)
+    scans = meta.scans
+    for k in np.unique(scan_sel):
+        rows = np.flatnonzero(scan_sel == k)
+        scan = scans[int(k)]
+        chars, r_idx = _scan_strings(meta, w.segment, int(k))
+        s2_b = chars.tobytes()
+        src_b = src.src_bytes[meta.src_sel[k]]
+        if src.src_lens[meta.src_sel[k]] != n:
+            raise ValueError(
+                "source-string length mismatch (complement drops "
+                "non-ACGTN characters): reference behavior is "
+                "undefined on this input")
+        res = native.finalize_pair(
+            q_idx, r_idx, rna_b, s2_b, src_b,
+            np.ascontiguousarray(meta5[rows], np.int32), meta.mat,
+            GAP_OPEN, GAP_EXTEND, w.start, scan["strand"],
+            scan["para"], p.nt_min, p.nt_max, p.penalty_t, p.penalty_c,
+            f32(p.min_identity), f32(p.min_stability))
+        if res is None:
+            # banded traceback error (never observed): exact rerun of
+            # the whole pair through the sequential host path
+            res = _pair_fallback(p, rna, q_idx, rna_b, meta, w, src,
+                                 chars, r_idx, int(k), gm_row,
+                                 cm_row_get())
+        for r in res:
+            found.append(Triplex(
+                stari=r[0], endi=r[1], starj=r[2], endj=r[3],
+                strand=scan["strand"], reverse=scan["para"],
+                rule=scan["rule"], nt=r[4], score=f32(r[5]),
+                identity=f32(r[6]), tri_score=f32(r[7]),
+                stri_align=r[8], strj_align=r[9]))
+    return found
 
 
 def _pair_fallback(p: Params, rna: np.ndarray, q_idx: np.ndarray,

@@ -31,7 +31,9 @@ Differences from fasim_tpu's:
     `warm_jobs`, which the driver joins (`pending`) before its first
     dispatch to that engine, and raised there;
   * the warm launches are counted in `prewarm_engines.launches`, never in
-    a kernel wrapper's `launches` (`_build.launches_to`);
+    a kernel wrapper's `launches` (`_build.launches_to`), and its scan and
+    window cells in `STAGES`' `scan_cells_prewarm` and
+    `window_cells_prewarm`, not in `scan_cells` and `window_cells`;
   * the scan warm is one segment of n_pad columns, not a full batch: the
     kernels do not compile per shape.
 """
@@ -48,6 +50,7 @@ import torch
 from .. import native
 from ..kernels import _build
 from ..kernels.window import K4_SHORT, NARROW, WIDTHS
+from ..profiling import STAGES
 
 # the warm threads' name
 THREAD_NAME = "fasim-prewarm"
@@ -91,12 +94,14 @@ def pending(eng) -> list[Future]:
 
 
 def _start(fn, *args) -> Future:
-    """Run fn(*args) on a daemon thread; its future holds the outcome."""
+    """Run fn(*args) on a daemon thread, inside the span `prewarm` whose
+    parent is the caller's current span; its future holds the outcome."""
     fut: Future = Future()
+    job = STAGES.spanned("prewarm", fn)
 
     def run():
         try:
-            fut.set_result(fn(*args))
+            fut.set_result(job(*args))
         except BaseException as exc:  # kept for the driver to raise
             fut.set_exception(exc)
 
