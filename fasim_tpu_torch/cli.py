@@ -33,10 +33,10 @@ fasim_tpu_torch.dist.runner` with the same flags.
 
 `--tpu-profile true` (or FASIM_PROFILE=1) prints `profiling.STAGES`'
 report as one `FASIM_PROFILE {...}` line on stderr: each stage's
-seconds and calls, and the `n_` counts of work (batches, escalations,
-scan and window cells, window rows, peaks, winners).  FASIM_TRACE=<path>
-writes the job's spans (stages with their threads and parents) there as
-a Chrome trace (profiling.py).
+seconds and calls, and the `n_` counts of work (batches, saturated
+batches, scan and window cells, window rows, peaks, winners).
+FASIM_TRACE=<path> writes the job's spans (stages with their threads and
+parents) there as a Chrome trace (profiling.py).
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ Fasim-LongTarget.cpp:113-115); this tracks the stage split of a run.
     `name` and one to `n_<name>`; the host candidate stage runs on a pool,
     so its time is busy-seconds (a sum over threads).  Always on.
   * Counters.  `count(name, n)` adds n to `n_<name>`: the work a stage
-    was asked to do (batches, escalations, scan and window cells, window
-    rows, peaks, winners).  Always on.
+    was asked to do (batches, saturated batches, scan and window cells,
+    window rows, peaks, winners).  Always on.
   * Spans.  While tracing is on, each `timer` block is also kept as a
     `Span` (name, start and end on the host's Unix clock in ns, the
     clock torch.profiler stamps its events with; thread; its own id and

@@ -303,18 +303,12 @@ def _process_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
         gm = _host(thresh_dev)
         packed = None
         if (gm >= BYTE_SAT).any():
-            # fasim_tpu's byte->word escalation: its windowed kernel
-            # needs a full-prefix rerun for thresholds >= BYTE_SAT.  This
-            # kernel is exact at any length (the rerun returns the same
-            # thresholds); the branch keeps fasim_tpu's control flow,
-            # full colmax rows instead of the packed candidates
-            STAGES.count("batches_escalated")
-            with STAGES.timer("escalation"):
-                gm = _host(eng.scan_segments(segs_win, lengths,
-                                             full_prefix=True,
-                                             host_segs=segs)[0])
-                cm_cache["cm"] = _host(cm_dev)
-        elif len(out) > 2:
+            # fasim_tpu reruns such a batch with a full prefix, because
+            # its windowed kernel is not exact there.  These kernels are
+            # exact at any length, so the first pass's thresholds and
+            # packed candidates (byte-break included) stand as they are
+            STAGES.count("batches_saturated")
+        if len(out) > 2:
             # count-then-slice fetch: the counts first, then only the
             # first kp candidate columns (kp = the batch's max count up a
             # small ladder); rows with cnt > kp take candidates.py's

@@ -8,8 +8,8 @@ within 1 ms of its range (one clock); with tracing off no span is kept;
 FASIM_TRACE writes the job's spans as a Chrome trace.  Counters: every
 report() value is a number, seconds but for `wall` and the `n_` counts;
 the scan and window cells equal the shapes computed by hand; an input
-that escalates counts its batch.  The output files and stdout are the
-same bytes with tracing on and off."""
+whose threshold saturates counts its batch, and scans it once.  The
+output files and stdout are the same bytes with tracing on and off."""
 
 import contextlib
 import io
@@ -224,8 +224,9 @@ def test_report_is_numbers_and_seconds(inputs, tmp_path):
 def test_cells_equal_the_shapes(inputs, tmp_path, monkeypatch):
     """n_scan_cells: S x T x m16 x n_pad a pass (one pass: the query and
     the segments are pure ACGT, so the threshold comes from the ssw pass;
-    one more for each escalation rerun); n_window_cells: each dispatched
-    window's rlen x (max(mreal, m) - off), from the dispatches' specs."""
+    a saturated batch is not scanned again); n_window_cells: each
+    dispatched window's rlen x (max(mreal, m) - off), from the dispatches'
+    specs."""
     specs = []
     real = TorchScanEngine.window_pass_specs
 
@@ -239,7 +240,7 @@ def test_cells_equal_the_shapes(inputs, tmp_path, monkeypatch):
     rep = STAGES.report()
     m16 = (QUERY + 15) // 16 * 16
     n_pad = (RECORD + 127) // 128 * 128
-    passes = rep["n_batches"] + rep.get("n_batches_escalated", 0)
+    passes = rep["n_batches"]
     assert rep["n_scan_cells"] == passes * 1 * T * m16 * n_pad
     want = sum(int((s["rlens"] * (np.maximum(s["mreals"], QUERY)
                                   - s["offs"])).sum()) for s in specs)
@@ -252,17 +253,30 @@ def test_cells_equal_the_shapes(inputs, tmp_path, monkeypatch):
     assert "n_scan_cells_prewarm" not in rep  # no card, no warm
 
 
-@pytest.mark.parametrize("hit,escalated", [(QUERY, N_RECORDS), (30, 0)])
-def test_escalation_is_counted(tmp_path, monkeypatch, hit, escalated):
-    """A 60-base hit scores >= 251 (the batch's scan escalates); a
-    30-base one does not."""
+@pytest.mark.parametrize("hit,saturated", [(QUERY, N_RECORDS), (30, 0)])
+def test_escalation_is_counted(tmp_path, monkeypatch, hit, saturated):
+    """A 60-base hit scores >= 251 (the batch saturates); a 30-base one
+    does not.  Neither batch is scanned again: one scan pass a batch, and
+    no call asks for a full-prefix rerun."""
     monkeypatch.chdir(tmp_path)
     dna, rna = _write_inputs(tmp_path, hit)
+    full_prefix = []
+    real = TorchScanEngine.scan_segments
+
+    def scan(self, *args, **kw):
+        full_prefix.append(bool(kw.get("full_prefix")))
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(TorchScanEngine, "scan_segments", scan)
     STAGES.start_run()
     _run(dna, rna, tmp_path / "out")
     rep = STAGES.report()
-    assert rep.get("n_batches_escalated", 0) == escalated
-    assert rep.get("n_escalation", 0) == escalated
+    assert rep.get("n_batches_saturated", 0) == saturated
+    assert "n_batches_escalated" not in rep and "n_escalation" not in rep
+    assert full_prefix == [False] * rep["n_batches"]
+    m16 = (QUERY + 15) // 16 * 16
+    n_pad = (RECORD + 127) // 128 * 128
+    assert rep["n_scan_cells"] == rep["n_batches"] * T * m16 * n_pad
 
 
 def test_prewarm_cells_are_counted_apart(monkeypatch):
@@ -282,9 +296,7 @@ def test_prewarm_cells_are_counted_apart(monkeypatch):
     assert rep["n_scan_cells_prewarm"] == T * m16 * n_pad
     rlens = sorted({NARROW, *WIDTHS, *K4_SHORT.values()})
     assert rep["n_window_cells_prewarm"] == 2 * sum(rlens) * m16
-    assert rep["n_scan_cells"] == (rep["n_batches"]
-                                   + rep.get("n_batches_escalated", 0)
-                                   ) * T * m16 * n_pad
+    assert rep["n_scan_cells"] == rep["n_batches"] * T * m16 * n_pad
 
 
 def test_outputs_identical_with_tracing_on(inputs, tmp_path, monkeypatch):
