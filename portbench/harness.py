@@ -48,7 +48,10 @@ def load_cell(name: str, bench: dict | None = None):
 
 
 def params_of(config: dict) -> fastsim.Params:
-    """The reference's parameters for the configuration's flags."""
+    """The reference's parameters for the configuration's flags.  The
+    port's own `--tpu-<name> <value>` pairs pick its drivers and engines
+    and leave the output as it is, so the reference has nothing to take
+    from them; they still go to cli.main (Runner.run)."""
     p = fastsim.Params()
     names = {"-r": "rule", "-c": "cut_length", "-t": "strand",
              "-o": "overlap_length", "-ni": "nt_min", "-na": "nt_max",
@@ -56,6 +59,8 @@ def params_of(config: dict) -> fastsim.Params:
              "-pc": "penalty_c", "-ds": "c_distance", "-lg": "c_length"}
     flags = config["flags"]
     for k in range(0, len(flags), 2):
+        if flags[k].startswith("--tpu-"):
+            continue
         if flags[k] not in names:
             raise ValueError(f"the reference does not take {flags[k]}")
         setattr(p, names[flags[k]], int(flags[k + 1]))
@@ -122,6 +127,8 @@ class Runner:
         self.count = 0
         self.written: list[check.Job] = []
         self.captured: list = []
+        # (rows, seconds) of each streamed job's store read by capturing
+        self.store_reads: list[tuple[int, float]] = []
 
     def write(self, spec: list[int]) -> check.Job:
         name = f"job{self.count:05d}.fa"
@@ -167,13 +174,21 @@ class Runner:
 @contextlib.contextmanager
 def capturing(runner: Runner):
     """Keep what cli.run hands post.output.print_result: the list of
-    triplexes the output stage writes."""
+    triplexes the output stage writes, or, for a streamed job, the rows
+    of its TriplexStore (store_rows), read before the output stage
+    closes the store and removes its spill file."""
     from fasim_tpu_torch.post import output
 
     original = output.print_result
 
     def keep(p, species, lnc_name, tlist, *args, **kwargs):
-        runner.captured.append(tlist)
+        if isinstance(tlist, list):
+            runner.captured.append(tlist)
+        else:
+            t0 = time.perf_counter()
+            runner.captured.append(store_rows(tlist))
+            runner.store_reads.append((len(tlist),
+                                       time.perf_counter() - t0))
         return original(p, species, lnc_name, tlist, *args, **kwargs)
 
     output.print_result = keep
@@ -183,6 +198,41 @@ def capturing(runner: Runner):
         output.print_result = original
 
 
+# the numeric columns of a TriplexStore that check.hit_of reads
+STORE_COLUMNS = ("stari", "endi", "starj", "endj", "strand", "reverse",
+                 "rule", "nt", "score", "identity", "tri_score",
+                 "genomestart", "genomeend")
+
+
+def store_rows(st) -> list:
+    """The rows of a finalized post.store.TriplexStore in its row order
+    (the order its output stage writes from), each with the store's
+    numeric columns, chro(i) and strings(i), as check.hit_of reads a
+    triplex.  A spilled store's strings are read through a mapping of
+    the spill file of this function's own, closed before it returns, so
+    the store is left as it was: its output stage opens its own."""
+    import mmap
+    import types
+
+    own = None
+    if st._spill is not None and st._mm is None and st._off:
+        own = mmap.mmap(st._spill.fileno(), 0, access=mmap.ACCESS_READ)
+        st._mm = own
+    try:
+        cols = {f: st.cols[f].tolist() for f in STORE_COLUMNS}
+        rows = []
+        for i in range(len(st)):
+            a, b = st.strings(i)
+            rows.append(types.SimpleNamespace(
+                **{f: cols[f][i] for f in STORE_COLUMNS},
+                stri_align=a, strj_align=b, chr=st.chro(i)))
+    finally:
+        if own is not None:
+            st._mm = None
+            own.close()
+    return rows
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
              t_start: float, extra_argv: list[str] = (),
              bench: dict | None = None, cell_spec=None,
@@ -190,6 +240,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     """One run: (result object, lines for stderr)."""
     import torch
 
+    t_enter = time.perf_counter()
     bench = bench or manifest()
     cell, config, mix = cell_spec or load_cell(name, bench)
     params = params_of(config)
@@ -208,6 +259,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         with capturing(runner):
             warm = runner.write(runner.warm_spec)
             runner.prepare()
+            t_files = time.perf_counter()
             runner.run(warm)
             if warm.status != 0:
                 raise RuntimeError(f"the warm-up job failed: {warm.error}")
@@ -215,6 +267,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             if device == "cuda":
                 torch.cuda.synchronize()
             runner.captured.clear()
+            runner.store_reads.clear()
+            t_warm = time.perf_counter()
             # every run records the card's work (the end-to-end metric
             # device_s_per_mbp reads it); a traced run also records the
             # host's operations, for the idle gaps' labels
@@ -302,6 +356,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                                              for n, s in t["gaps"]]}
     if trace:
         lines.append(f"card power limit: {power_limit()}")
+    lines.append(f"set-up {setup_s:.3f} s: to the harness (imports, CUDA) "
+                 f"{t_enter - t_start:.3f} s, job files "
+                 f"{t_files - t_enter:.3f} s, warm-up job "
+                 f"{t_warm - t_files:.3f} s, profiler start "
+                 f"{t0 - t_warm:.3f} s; this process's CPU {cpu0:.3f} s")
     lines.append(f"window {window_s:.3f} s, {len(jobs)} jobs, {bases} bases: "
                  f"{bases / window_s / 1e3:.4f} kbp/s on the host's clock; "
                  f"set-up {setup_s:.3f} s; the check {check_s:.3f} s")
@@ -309,6 +368,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         lines.append(f"card busy {t['busy_s']:.6f} s in the window")
     lines.append(host_load(cpu0, cpu1, window_s, job_s))
     lines.append(stage_shares(stages, window_s))
+    lines.append(counters(stages))
+    if runner.store_reads:
+        lines.append(store_line(runner.store_reads))
     lines.append(f"records checked against the reference: {len(pairs)} "
                  f"of {sum(len(j.spec) for j in jobs)} in {len(jobs)} jobs")
     for k, n in numbers.items():
@@ -363,6 +425,23 @@ def stage_shares(stages: dict, window_s: float) -> str:
     parts = [f"{k} {100 * v / window_s:.2f}%" for k, v in stages.items()
              if not k.startswith("n_") and k != "wall"]
     return "program stages over the window: " + (", ".join(parts) or "none")
+
+
+def counters(stages: dict) -> str:
+    """A line on the program's `n_` counts of work over the window."""
+    parts = [f"{k} {v}" for k, v in stages.items() if k.startswith("n_")]
+    return "program counters over the window: " + (", ".join(parts)
+                                                    or "none")
+
+
+def store_line(reads: list[tuple[int, float]]) -> str:
+    """A line on the window's reads of streamed jobs' stores (capturing):
+    host time inside the window, which the card's busy time leaves out."""
+    rows = sum(n for n, _ in reads)
+    secs = sum(s for _, s in reads)
+    return (f"streamed stores read for the check: {len(reads)} jobs, "
+            f"{rows} rows in {secs:.4f} s ({secs / len(reads):.4f} s a job, "
+            f"{1e6 * secs / max(rows, 1):.2f} us a row)")
 
 
 def power_limit() -> str:

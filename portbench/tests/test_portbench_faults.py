@@ -1,8 +1,11 @@
 """A run with the timed path broken underneath comes out not correct:
 the harness drives cli.main on the port's CPU engine past its look for
-a GPU, with one fault planted in the program each time.  The cells run
-on one GPU and exchange nothing between chips, so that fault has no
-place here."""
+a GPU, with one fault planted in the program each time, through the
+batched driver and through the streaming driver, whose store has faults
+of its own.  The cells run on one GPU and exchange nothing between
+chips, so that fault has no place here."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -62,8 +65,9 @@ def _answer_altered(monkeypatch):
 
 
 def _output_altered(monkeypatch):
-    """The output stage writes the rows' numbers wrong."""
-    from fasim_tpu_torch.post import output
+    """The output stage writes the rows' numbers wrong (the list's
+    writer and the streamed store's)."""
+    from fasim_tpu_torch.post import output, store
 
     orig = output._fmt_f
 
@@ -71,11 +75,57 @@ def _output_altered(monkeypatch):
         return orig(v) + "1"
 
     monkeypatch.setattr(output, "_fmt_f", fmt)
+    monkeypatch.setattr(store, "_fmt_f", fmt)
 
 
-@pytest.mark.parametrize("fault", [_state_unchanged, _half_batch,
-                                   _answer_altered, _output_altered])
+def _store_record_dropped(monkeypatch):
+    """A streamed job's store leaves out the hits of one record: the
+    first record with hits of each job."""
+    from fasim_tpu_torch.post import store
+
+    orig = store.TriplexStore.add_record
+
+    def add(self, bucket, chro, hits):
+        if hits and not getattr(self, "dropped", False):
+            self.dropped = True
+            hits = []
+        return orig(self, bucket, chro, hits)
+
+    monkeypatch.setattr(store.TriplexStore, "add_record", add)
+
+
+def _spilled_string_altered(monkeypatch):
+    """A streamed job's store spills one alignment string altered: the
+    first hit's TFO of each record, its first letter changed."""
+    from fasim_tpu_torch.post import store
+
+    orig = store.TriplexStore.add_record
+
+    def add(self, bucket, chro, hits):
+        if hits:
+            t = copy.copy(hits[0])
+            s = t.stri_align
+            t.stri_align = ("C" if s[:1] != "C" else "G") + s[1:]
+            hits = [t, *hits[1:]]
+        return orig(self, bucket, chro, hits)
+
+    monkeypatch.setattr(store.TriplexStore, "add_record", add)
+
+
+FAULTS = [_state_unchanged, _half_batch, _answer_altered, _output_altered]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 def test_a_broken_program_is_not_correct(tiny_cell, monkeypatch, fault):
     fault(monkeypatch)
     result, lines = run_tiny(tiny_cell)
+    assert result["correct"] is False, lines
+
+
+@pytest.mark.parametrize("fault", [*FAULTS, _store_record_dropped,
+                                   _spilled_string_altered])
+def test_a_broken_streamed_program_is_not_correct(tiny_stream_cell,
+                                                  monkeypatch, fault):
+    fault(monkeypatch)
+    result, lines = run_tiny(tiny_stream_cell)
     assert result["correct"] is False, lines

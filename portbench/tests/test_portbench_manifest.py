@@ -114,3 +114,15 @@ def test_metric_readers_are_found_by_name(metric):
 def test_four_chip_cells_are_at_most_a_quarter():
     four = sum(1 for w in BENCH["workloads"] if w["chips"] == 4)
     assert four <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_params_of_skips_the_ports_own_flags():
+    """`--tpu-<name> <value>` pairs go to cli.main alone; every other
+    flag the reference's table lacks is refused."""
+    p = harness.params_of({"flags": ["--tpu-stream", "on", "-c", "4000",
+                                     "--tpu-engine", "torch"]})
+    assert p.cut_length == 4000
+    assert harness.params_of({"flags": ["--tpu-stream", "on"]}) == \
+        harness.params_of({"flags": []})
+    with pytest.raises(ValueError, match="-X"):
+        harness.params_of({"flags": ["--tpu-stream", "on", "-X", "1"]})

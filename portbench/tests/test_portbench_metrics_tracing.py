@@ -1,5 +1,5 @@
-"""The readers of the program's counters (escalated_batch_pct,
-scan_swept_per_needed, window_roofline_pct) on synthetic records,
+"""The readers of the program's counters (scan_swept_per_needed,
+window_roofline_pct) on synthetic records,
 including a program that counts nothing, whose record must give None."""
 
 import importlib
@@ -29,21 +29,12 @@ def read(name, rec):
     return importlib.import_module(f"portbench.metrics.{name}").read(rec)
 
 
-NAMES = ["escalated_batch_pct", "scan_swept_per_needed",
-         "window_roofline_pct"]
+NAMES = ["scan_swept_per_needed", "window_roofline_pct"]
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_a_program_without_the_counters_gives_nothing(name):
     assert read(name, record()) is None
-
-
-def test_escalated_share_of_batches():
-    assert read("escalated_batch_pct", record(
-        n_batches=13, n_batches_escalated=2)) == pytest.approx(100 * 2 / 13)
-    # a window in which no batch escalated counts no escalation at all
-    assert read("escalated_batch_pct", record(n_batches=13)) == 0.0
-    assert read("escalated_batch_pct", record(n_batches=0)) is None
 
 
 def test_swept_over_needed_cells():
