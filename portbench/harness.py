@@ -244,6 +244,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     bench = bench or manifest()
     cell, config, mix = cell_spec or load_cell(name, bench)
     params = params_of(config)
+    # the cards the run was given: the cell's chips (run.py keeps no more
+    # visible), each with an engine of the program's round-robin
+    cards = cell["chips"] if device == "cuda" else 0
     from fasim_tpu_torch.profiling import STAGES
 
     lines: list[str] = []
@@ -264,8 +267,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             if warm.status != 0:
                 raise RuntimeError(f"the warm-up job failed: {warm.error}")
             shutil.rmtree(warm.outdir)
-            if device == "cuda":
-                torch.cuda.synchronize()
+            for i in range(cards):
+                torch.cuda.synchronize(i)
             runner.captured.clear()
             runner.store_reads.clear()
             t_warm = time.perf_counter()
@@ -300,8 +303,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             stages = STAGES.report()
             if prof is not None:
                 prof.stop()
-        peak = (torch.cuda.max_memory_allocated() if device == "cuda"
-                else 0)
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(cards)]
         record = {
             "window_s": window_s, "bases": bases, "jobs": len(jobs),
             "job_s": job_s, "stages": stages,
@@ -343,12 +345,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         "platform": "gpu" if device == "cuda" else "cpu",
         "kind": (torch.cuda.get_device_name(0) if device == "cuda"
                  else "cpu"),
-        "count": 1, "memory_peak_bytes": int(peak)}
+        "count": max(cards, 1), "memory_peak_bytes": max(peaks, default=0),
+        "memory_peak_bytes_by_card": peaks}
     result = {"correct": check.correct(numbers), "attempted": len(jobs),
               "failed": failed, "metrics": metrics, "device": device_info}
     t = record["trace"]
     if trace and t is not None:
         device_info["busy_s"] = t["busy_s"]
+        # keyed by the card's index as the profiler gives it
+        device_info["busy_s_by_card"] = t["busy_s_by_card"]
         device_info["window_s"] = t["window_s"]
         top = sorted(t["kernels"].items(), key=lambda kv: -kv[1])[:10]
         result["breakdown"] = {"device_ops": [[n[:160], s] for n, s in top],
@@ -365,7 +370,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                  f"{bases / window_s / 1e3:.4f} kbp/s on the host's clock; "
                  f"set-up {setup_s:.3f} s; the check {check_s:.3f} s")
     if t is not None:
-        lines.append(f"card busy {t['busy_s']:.6f} s in the window")
+        lines.append(f"card busy {t['busy_s']:.6f} s in the window, "
+                     "summed over the cards: " + ", ".join(
+                         f"card {c} {s:.6f} s"
+                         for c, s in t["busy_s_by_card"].items()))
+    if peaks:
+        lines.append("memory peak by card: " + ", ".join(
+            f"card {i} {n} B" for i, n in enumerate(peaks)))
     lines.append(host_load(cpu0, cpu1, window_s, job_s))
     lines.append(stage_shares(stages, window_s))
     lines.append(counters(stages))
@@ -449,7 +460,7 @@ def power_limit() -> str:
         return subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
+            timeout=30).stdout.strip().replace("\n", "; ")
     except (OSError, subprocess.SubprocessError) as exc:
         return f"not read ({exc})"
 

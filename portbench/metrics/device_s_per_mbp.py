@@ -1,8 +1,9 @@
-"""Seconds the card was busy per million DNA bases of the window's jobs:
-the union of the kernel, copy and set intervals torch.profiler's CUPTI
-record holds for the window, over the bases the jobs scanned.  The card's
-own cost of a base, which sets how much DNA one card scans a second when
-it is kept fed.  End-to-end; every run records the card's work."""
+"""Card-seconds of busy time per million DNA bases of the window's jobs:
+each card's union of the kernel, copy and set intervals torch.profiler's
+CUPTI record holds for the window, summed over the cards (on one card,
+the union), over the bases the jobs scanned.  The card time a base
+costs, which sets how much DNA a card scans a second when it is kept
+fed.  End-to-end; every run records the cards' work."""
 
 
 def read(rec: dict):

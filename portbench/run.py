@@ -27,6 +27,51 @@ os.environ.setdefault("USE_FLAX", "0")
 os.environ.setdefault("USE_JAX", "0")
 
 
+def visible_cards(environ=os.environ) -> list[str] | None:
+    """The cards a CUDA program started now would see, as
+    CUDA_VISIBLE_DEVICES names them (its entries up to the first empty
+    one), or every card NVML counts where it is unset; None where
+    neither says.  Reads no CUDA state, so CUDA can still be pinned."""
+    if "CUDA_VISIBLE_DEVICES" in environ:
+        names = []
+        for name in environ["CUDA_VISIBLE_DEVICES"].split(","):
+            if not name.strip():
+                break
+            names.append(name.strip())
+        return names
+    import ctypes
+
+    try:
+        nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    if nvml.nvmlInit_v2() != 0:
+        return None
+    try:
+        n = ctypes.c_uint(0)
+        if nvml.nvmlDeviceGetCount_v2(ctypes.byref(n)) != 0:
+            return None
+        return [str(i) for i in range(n.value)]
+    finally:
+        nvml.nvmlShutdown()
+
+
+def pin_cards(chips: int, environ=os.environ) -> str:
+    """Keep the first `chips` visible cards where more are visible, by
+    CUDA_VISIBLE_DEVICES, before CUDA starts: the cell gets the cards it
+    asks for, and the program, which by default builds an engine for
+    every card it sees, no more.  Returns a line for standard error."""
+    names = visible_cards(environ)
+    if names is None:
+        return (f"cards: the cell asks for {chips}; visible not read (no "
+                "CUDA_VISIBLE_DEVICES, no NVML), none pinned")
+    if len(names) > chips:
+        environ["CUDA_VISIBLE_DEVICES"] = ",".join(names[:chips])
+        return (f"cards: {len(names)} visible, {chips} kept "
+                f"(CUDA_VISIBLE_DEVICES={environ['CUDA_VISIBLE_DEVICES']})")
+    return f"cards: {len(names)} visible, {len(names)} kept"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--workload", required=True)
@@ -42,6 +87,8 @@ def main() -> int:
     bench = harness.manifest()
     spec = harness.load_cell(args.workload, bench)
     chips = spec[0]["chips"]
+    # torch is imported by now; CUDA starts at its first use, below
+    print(pin_cards(chips), file=sys.stderr)
 
     import fasim_tpu_torch  # noqa: F401  (the program under test)
     import torch

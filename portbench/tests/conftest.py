@@ -1,6 +1,7 @@
 """A cell small enough for the CPU: two records of 400 bases from the
-MEG3 peaks a job, against the MEG3 lncRNA, on the port's CPU engine; and
-the same cell through the streaming driver (`--tpu-stream on`)."""
+MEG3 peaks a job, against the MEG3 lncRNA, on the port's CPU engine; the
+same cell through the streaming driver (`--tpu-stream on`); and a cell of
+eight such records a job dealt over four engines (`--tpu-dp-devices 4`)."""
 
 from pathlib import Path
 
@@ -11,16 +12,29 @@ from portbench import harness, traffic
 BENCH = Path(__file__).resolve().parent.parent
 
 
+def _tiny_fasta(path: Path, picks: list[int]) -> Path:
+    """The first 400 bases of each picked MEG3 peak, as its own record."""
+    recs = traffic.raw_records(BENCH / "data" / "meg3dna.fa")
+    with open(path, "w") as f:
+        for k in picks:
+            sp, chro, rng = recs[k].header.split("|")
+            a = int(rng.split("-")[0])
+            f.write(f">{sp}|{chro}|{a}-{a + 399}\n{recs[k].text[:400]}\n")
+    return path
+
+
 @pytest.fixture(scope="session")
 def tiny_dna(tmp_path_factory) -> Path:
-    recs = traffic.raw_records(BENCH / "data" / "meg3dna.fa")[:3]
-    path = tmp_path_factory.mktemp("tiny") / "dna.fa"
-    with open(path, "w") as f:
-        for r in recs:
-            sp, chro, rng = r.header.split("|")
-            a = int(rng.split("-")[0])
-            f.write(f">{sp}|{chro}|{a}-{a + 399}\n{r.text[:400]}\n")
-    return path
+    return _tiny_fasta(tmp_path_factory.mktemp("tiny") / "dna.fa", [0, 1, 2])
+
+
+@pytest.fixture(scope="session")
+def tiny_dp_dna(tmp_path_factory) -> Path:
+    """Eight records, each with triplexes against MEG3 (1 to 7 each on
+    the port's CPU engine), so that every engine's batch has hits to
+    lose."""
+    return _tiny_fasta(tmp_path_factory.mktemp("tiny_dp") / "dna.fa",
+                       [0, 2, 4, 6, 9, 11, 12, 13])
 
 
 @pytest.fixture
@@ -49,6 +63,21 @@ def tiny_stream_cell(tiny_cell):
     bench["workloads"].append(cell)
     flags = ["--tpu-stream", "on", "-c", "500", "-o", "100"]
     return bench, (cell, dict(config, flags=flags), mix)
+
+
+@pytest.fixture
+def tiny_dp4_cell(tiny_cell, tiny_dp_dna):
+    """(bench, cell_spec) of a cell of eight records a job over four
+    engines, two segments a batch: the job's four batches go one to each
+    engine (batch k to engine k mod 4), and the check recomputes all
+    eight records of the window's first job."""
+    bench, (cell, config, mix) = tiny_cell
+    cell = dict(cell, name="tiny_dp4.peaks8", config="tiny_dp4")
+    bench["workloads"].append(cell)
+    flags = ["--tpu-dp-devices", "4", "--tpu-segments-per-batch", "2"]
+    mix = {"records_per_job": 8, "jobs_written": 1, "check_records": 8}
+    return bench, (cell, dict(config, dna=str(tiny_dp_dna), flags=flags),
+                   mix)
 
 
 def run_tiny(tiny_cell, seed=20260001, seconds=0.5, trace=False):
